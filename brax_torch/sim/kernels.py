@@ -3,8 +3,9 @@
 Counterpart of `brax_tpu/sim/kernels.py`.  `pbd_step(sys, qp, act)` steps a
 whole env batch with one launch of `brax_torch/csrc/pbd_step.cu`, which
 replaces the Pallas kernel `_build_tile_step`.  On CPU tensors it runs
-`pbd_step_plain`, the same step written with torch ops; on CUDA tensors it
-launches the kernel or raises, and never falls back to the twin.
+`pbd_step_plain`, the same step written with the sim modules' torch
+functions (the counterpart of the JAX package's jnp `_pbd_step`); on CUDA
+tensors it launches the kernel or raises, and never falls back to the twin.
 
 The kernel is built with nvcc at first use, into `build/brax_torch/` beside
 the package, keyed by a hash of its source, and loaded with ctypes.
@@ -19,14 +20,18 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import List, Tuple
+from typing import TYPE_CHECKING, List, Tuple
 
 import numpy as np
 import torch
 
+from brax_torch.sim import actuators as actuators_mod
 from brax_torch.sim import colliders as colliders_mod
-from brax_torch.sim.system import System, _pbd_step
-from brax_torch.sim.types import DP, QP, Info, Tensor
+from brax_torch.sim import joints as joints_mod
+from brax_torch.sim.types import DP, DQ, QP, Info, Tensor
+
+if TYPE_CHECKING:
+    from brax_torch.sim.system import System
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "pbd_step.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "brax_torch"
@@ -239,10 +244,59 @@ def _kernel_info(contact: DP, n: int, device) -> Info:
     )
 
 
+def _zero_dp(qp: QP) -> DP:
+    return DP(torch.zeros_like(qp.pos), torch.zeros_like(qp.pos))
+
+
+def _zero_dq(qp: QP) -> DQ:
+    return DQ(torch.zeros_like(qp.pos), torch.zeros_like(qp.rot))
+
+
+def _half_substep(sys: System, qp: QP, act: Tensor) -> QP:
+    """Actuator and joint-damping impulses, the kinetic step and the joint
+    position projection: what both half-substeps share."""
+    dp_a = sum((actuators_mod.apply(a, sys.joint_groups[a.group_index], qp, act, sys.nb)
+                for a in sys.actuator_groups), _zero_dp(qp))
+    dp_j = sum((joints_mod.damp(g, qp, sys.nb) for g in sys.joint_groups), _zero_dp(qp))
+    qp = sys.integrator.update_acc(qp, dp_a + dp_j)
+    qp = sys.integrator.kinetic(qp)
+    dq_j = sum((joints_mod.pbd_apply(g, qp, sys.nb) for g in sys.joint_groups), _zero_dq(qp))
+    return sys.integrator.update_pos(qp, dq_j)
+
+
 def pbd_step_plain(sys: System, qp: QP, act: Tensor) -> Tuple[QP, Info]:
-    """The kernel's plain-torch twin: same inputs, same outputs."""
-    qp_out, info = _pbd_step(sys, qp, act)
-    return qp_out, _kernel_info(info.contact, qp.pos.shape[0], qp.pos.device)
+    """The kernel's plain-torch twin: same inputs, same outputs.
+
+    Position-based dynamics, two physics substeps per collision pass, a
+    Python loop over `substeps // 2` passes.  Info.contact holds the contact
+    impulses summed over the passes; Info.joint and Info.actuator are zero,
+    as the JAX kernel path returns them.
+    """
+    if sys.dynamics_mode != "pbd":
+        raise NotImplementedError(
+            f"dynamics_mode={sys.dynamics_mode!r} is not ported yet (see ROADMAP.md)"
+        )
+    integ, nb = sys.integrator, sys.nb
+    contact = _zero_dp(qp)
+    for _ in range(sys.substeps // 2):
+        # -- first half-substep: no collisions --
+        qprev = qp
+        qp = integ.velocity_projection(_half_substep(sys, qp, act), qprev)
+
+        # -- second half-substep: with collisions --
+        qprev = qp
+        qp = _half_substep(sys, qp, act)
+        collide = [colliders_mod.position_apply(g, qp, qprev, sys.solver, nb)
+                   for g in sys.contact_groups]
+        qp = integ.update_pos(qp, sum((c[0] for c in collide), _zero_dq(qp)))
+        qp_right_before = qp
+        qp = integ.velocity_projection(qp, qprev)
+        dp_c = sum((colliders_mod.velocity_apply(g, qp, c[1], qp_right_before, c[2],
+                                                 sys.solver, nb)
+                    for g, c in zip(sys.contact_groups, collide)), _zero_dp(qp))
+        qp = integ.update_vel(qp, dp_c)
+        contact = contact + dp_c
+    return qp, _kernel_info(contact, qp.pos.shape[0], qp.pos.device)
 
 
 def pbd_step_soa(sys: System, pos: Tensor, rot: Tensor, vel: Tensor, ang: Tensor,

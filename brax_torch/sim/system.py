@@ -3,11 +3,10 @@
 Counterpart of `brax_tpu/sim/system.py`.  A `System` holds dense tensor
 tables built from a scene `Config` by `brax_torch.sim.builder`.  One call
 steps the whole env batch, so the JAX package's `custom_vmap` rerouting has no
-counterpart: `step` goes straight to the fused kernel's wrapper, which runs
-the CUDA kernel on CUDA tensors and the plain-torch twin on CPU tensors.
-
-`_pbd_step` is the twin: the PBD step written with the per-module torch
-functions, a Python loop over `substeps // 2` collision passes.
+counterpart: `step` goes straight to the fused kernel's wrapper,
+`kernels.pbd_step`, which runs the CUDA kernel on CUDA tensors and its
+plain-torch twin (`kernels.pbd_step_plain`, the counterpart of `_pbd_step`)
+on CPU tensors.
 """
 
 from __future__ import annotations
@@ -22,6 +21,7 @@ import torch
 from brax_torch.sim import actuators as actuators_mod
 from brax_torch.sim import colliders as colliders_mod
 from brax_torch.sim import joints as joints_mod
+from brax_torch.sim import kernels
 from brax_torch.sim.integrator import Integrator
 from brax_torch.sim.types import DP, DQ, QP, Info, Tensor
 
@@ -158,138 +158,32 @@ def _unflatten(tables: Dict[str, Any], prefix: str, device):
 # ---------------------------------------------------------------------------
 
 
-def _zero_dp(shape, device) -> DP:
-    return DP(torch.zeros(shape + (3,), device=device), torch.zeros(shape + (3,), device=device))
-
-
-def _sum(items, zero):
-    out = zero
-    for it in items:
-        out = out + it
-    return out
-
-
-def _actuator_dp(sys: System, qp: QP, act: Tensor) -> DP:
-    return _sum(
-        [
-            actuators_mod.apply(a, sys.joint_groups[a.group_index], qp, act, sys.nb)
-            for a in sys.actuator_groups
-        ],
-        _zero_dp(qp.pos.shape[:-1], qp.pos.device),
-    )
-
-
-def _joint_damp_dp(sys: System, qp: QP) -> DP:
-    return _sum(
-        [joints_mod.damp(g, qp, sys.nb) for g in sys.joint_groups],
-        _zero_dp(qp.pos.shape[:-1], qp.pos.device),
-    )
-
-
-def _joint_pbd_dq(sys: System, qp: QP) -> DQ:
-    zero = DQ(torch.zeros_like(qp.pos), torch.zeros_like(qp.rot))
-    return _sum([joints_mod.pbd_apply(g, qp, sys.nb) for g in sys.joint_groups], zero)
-
-
-def zero_info(sys: System, batch: int, device) -> Info:
-    """Info with zero impulses and one placeholder contact per env."""
-    zero = _zero_dp((batch, sys.nb), device)
-    return Info(
-        contact=zero,
-        joint=zero,
-        actuator=zero,
-        contact_pos=torch.zeros((batch, 1, 3), device=device),
-        contact_normal=torch.zeros((batch, 1, 3), device=device),
-        contact_penetration=-torch.ones((batch, 1), device=device),
-    )
-
-
 def step(sys: System, qp: QP, act: Tensor) -> Tuple[QP, Info]:
     """One env step for the whole batch: the CUDA kernel on CUDA tensors,
     the plain-torch twin on CPU tensors."""
-    from brax_torch.sim import kernels
-
     return kernels.pbd_step(sys, qp, act)
-
-
-def _pbd_step(sys: System, qp: QP, act: Tensor) -> Tuple[QP, Info]:
-    """Position-based dynamics: 2 physics substeps per collision pass.
-
-    Info follows the JAX package's jnp path: contact impulses summed over
-    the collision passes, and actuator impulses of the second half-substeps.
-    """
-    if sys.dynamics_mode != "pbd":
-        raise NotImplementedError(
-            f"dynamics_mode={sys.dynamics_mode!r} is not ported yet (see ROADMAP.md)"
-        )
-    integ = sys.integrator
-    nb = sys.nb
-    info = zero_info(sys, qp.pos.shape[0], qp.pos.device)
-
-    for _ in range(sys.substeps // 2):
-        qprev = qp
-
-        # -- first half-substep: no collisions --
-        dp_a = _actuator_dp(sys, qp, act)
-        dp_j = _joint_damp_dp(sys, qp)
-        qp = integ.update_acc(qp, dp_a + dp_j)
-        qp = integ.kinetic(qp)
-        qp = integ.update_pos(qp, _joint_pbd_dq(sys, qp))
-        qp = integ.velocity_projection(qp, qprev)
-
-        qprev = qp
-
-        # -- second half-substep: with collisions --
-        dp_a = _actuator_dp(sys, qp, act)
-        dp_j = _joint_damp_dp(sys, qp)
-        qp = integ.update_acc(qp, dp_a + dp_j)
-        qp = integ.kinetic(qp)
-        qp = integ.update_pos(qp, _joint_pbd_dq(sys, qp))
-
-        collide = [
-            colliders_mod.position_apply(g, qp, qprev, sys.solver, nb)
-            for g in sys.contact_groups
-        ]
-        zero_dq = DQ(torch.zeros_like(qp.pos), torch.zeros_like(qp.rot))
-        qp = integ.update_pos(qp, _sum([c[0] for c in collide], zero_dq))
-
-        qp_right_before = qp
-        qp = integ.velocity_projection(qp, qprev)
-        dp_c = _sum(
-            [
-                colliders_mod.velocity_apply(
-                    g, qp, collide[i][1], qp_right_before, collide[i][2], sys.solver, nb
-                )
-                for i, g in enumerate(sys.contact_groups)
-            ],
-            _zero_dp(qp.pos.shape[:-1], qp.pos.device),
-        )
-        qp = integ.update_vel(qp, dp_c)
-
-        info = dataclasses.replace(
-            info, contact=info.contact + dp_c, actuator=info.actuator + dp_a
-        )
-    return qp, info
 
 
 def info(sys: System, qp: QP) -> Info:
     """State telemetry for reset: contact impulses and joint corrections."""
     nb = sys.nb
+    zero = DP(torch.zeros_like(qp.pos), torch.zeros_like(qp.pos))
     collide = [colliders_mod.spring_apply(g, qp, sys.solver, nb) for g in sys.contact_groups]
-    dp_c = _sum([c[0] for c in collide], _zero_dp(qp.pos.shape[:-1], qp.pos.device))
     contacts = [c[1] for c in collide]
+    batch = qp.pos.shape[:-2]
     if contacts:
-        batch = qp.pos.shape[:-2]
         pos = torch.cat([c.pos.reshape(batch + (-1, 3)) for c in contacts], dim=-2)
         normal = torch.cat([c.normal.reshape(batch + (-1, 3)) for c in contacts], dim=-2)
         pen = torch.cat([c.penetration.reshape(batch + (-1,)) for c in contacts], dim=-1)
-    else:
-        z = zero_info(sys, qp.pos.shape[0], qp.pos.device)
-        pos, normal, pen = z.contact_pos, z.contact_normal, z.contact_penetration
+    else:  # one placeholder contact per env
+        pos = torch.zeros(batch + (1, 3), device=qp.pos.device)
+        normal = torch.zeros_like(pos)
+        pen = -torch.ones(batch + (1,), device=qp.pos.device)
     return Info(
-        contact=dp_c,
-        joint=_joint_pbd_dq(sys, qp),
-        actuator=_zero_dp(qp.pos.shape[:-1], qp.pos.device),
+        contact=sum((c[0] for c in collide), zero),
+        joint=sum((joints_mod.pbd_apply(g, qp, nb) for g in sys.joint_groups),
+                  DQ(torch.zeros_like(qp.pos), torch.zeros_like(qp.rot))),
+        actuator=zero,
         contact_pos=pos,
         contact_normal=normal,
         contact_penetration=pen,

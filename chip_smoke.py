@@ -7,8 +7,10 @@
    register and spill report;
 3. holds the kernel against its plain-torch twin at the main path's shapes:
    ant at 4096 envs, from a contact-rich state (10 twin steps after reset).
-   An env outside the tolerance passes only if the twin, fed its input with
-   noise of a few float32 ulps, reproduces the kernel's output there;
+   Every output (pos, rot, vel, ang and the contact vel/ang impulses) is
+   held to the tolerance.  At most MAX_OUTLIERS envs may fall outside it,
+   and each only if the twin, fed its input with noise of a few float32
+   ulps, reproduces the kernel's output there;
 4. drives the main path: envs.create("ant", batch_size=4096), reset, 200
    env.step calls with random actions, and checks that the kernel ran once
    per step and that every observation is finite;
@@ -33,14 +35,16 @@ from brax_torch.sim import kernels
 N_ENVS = 4096
 MAIN_STEPS = 200
 # the CPU parity tests' in-contact tolerances (tests/test_torch_step.py)
-TOLERANCE = {"pos": 1e-4, "rot": 1e-4, "vel": 3e-3, "ang": 3e-3, "contact_vel": 3e-3}
+TOLERANCE = {"pos": 1e-4, "rot": 1e-4, "vel": 3e-3, "ang": 3e-3, "contact_vel": 3e-3,
+             "contact_ang": 3e-3}
 # an env outside TOLERANCE passes only if the twin, fed that env's input with
 # relative noise of these sizes (about 1 and 8 float32 ulps), reproduces the
 # kernel's output within TOLERANCE in at least one of PERTURBED_COPIES tries
 ROUNDING_NOISE = (1e-7, 1e-6)
 PERTURBED_COPIES = 64
-# more outliers than this share of the envs fails outright
-MAX_OUTLIER_SHARE = 1e-2
+# more outlier envs than this fails outright (runs of this script on an H100
+# at the seeds below have shown 1 of 4096)
+MAX_OUTLIERS = 4
 # H100 SXM data sheet: HBM3 bandwidth and fp32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -97,7 +101,7 @@ class OpCount(TorchDispatchMode):
 
 def _fields(qp, info):
     return {"pos": qp.pos, "rot": qp.rot, "vel": qp.vel, "ang": qp.ang,
-            "contact_vel": info.contact.vel}
+            "contact_vel": info.contact.vel, "contact_ang": info.contact.ang}
 
 
 def _per_env_errors(a, b):
@@ -134,9 +138,11 @@ def rounding_decided(sys_, qp, act, idx, kernel_out, gen):
 def max_errors(sys_, qp, act, gen):
     """Kernel vs twin from one state.
 
-    Returns ({field: max abs error over all envs}, outlier count).  Every
-    field of every env must be within TOLERANCE, or else the env must be one
-    whose result float rounding decides (rounding_decided): the kernel
+    Returns ({field: max abs error over all envs}, {field: max abs error
+    over the envs within TOLERANCE on every field}, outlier count).  Every
+    field of every env must be within TOLERANCE, except in at most
+    MAX_OUTLIERS envs, each of which must be one whose result float
+    rounding decides (rounding_decided): the kernel
     computes in the order of the Pallas kernel it replaces, the twin in the
     order of the JAX jnp path, and near a contact threshold that order picks
     the branch.  scripts/replay_outliers.py replays such envs through both
@@ -147,27 +153,29 @@ def max_errors(sys_, qp, act, gen):
     torch.cuda.synchronize()
     kernel_out = _fields(out, info)
     per_env = _per_env_errors(kernel_out, _fields(ref, info_ref))
-    errs, over = {}, torch.zeros(qp.pos.shape[0], dtype=torch.bool, device=qp.pos.device)
+    over = torch.stack([~(e <= TOLERANCE[k]) for k, e in per_env.items()]).any(dim=0)
+    errs, inside_errs = {}, {}
     for k, e in per_env.items():
         errs[k] = float(e.max())
-        over |= ~(e <= TOLERANCE[k])
-        inside = e[e <= TOLERANCE[k]]
-        inside_max = float(inside.max()) if inside.numel() else float("nan")
-        print(f"parity {k}: max|kernel - twin| = {errs[k]:.3e}, within tolerance "
-              f"{TOLERANCE[k]:.0e} in {inside.numel()}/{e.numel()} envs "
-              f"(max there {inside_max:.3e})")
+        inside_errs[k] = float(e[~over].max()) if bool((~over).any()) else float("nan")
+        print(f"parity {k}: max|kernel - twin| = {errs[k]:.3e} over all envs, "
+              f"{inside_errs[k]:.3e} over the {int((~over).sum())} envs within tolerance "
+              f"(tolerance {TOLERANCE[k]:.0e}; this field within it in "
+              f"{int((e <= TOLERANCE[k]).sum())}/{e.numel()} envs)")
     idx = over.nonzero().flatten()
     outliers = len(idx)
     print(f"parity: {outliers} outlier envs of {over.numel()}: {idx.tolist()}")
-    if outliers > MAX_OUTLIER_SHARE * over.numel():
-        raise AssertionError(f"kernel disagrees with its plain twin in {outliers} envs: {errs}")
+    if outliers > MAX_OUTLIERS:
+        raise AssertionError(f"kernel disagrees with its plain twin in {outliers} envs "
+                             f"(at most {MAX_OUTLIERS} allowed): {errs}")
     if outliers:
         # inputs and both outputs of the outliers, for scripts/replay_outliers.py
         path = kernels.BUILD_DIR / "parity_outliers.npz"
         host = lambda x: x[idx].cpu().numpy()
         np.savez(path, pos=host(qp.pos), rot=host(qp.rot), vel=host(qp.vel),
                  ang=host(qp.ang), act=host(act), kernel_vel=host(out.vel),
-                 twin_vel=host(ref.vel))
+                 twin_vel=host(ref.vel), kernel_contact_ang=host(info.contact.ang),
+                 twin_contact_ang=host(info_ref.contact.ang))
         print(f"parity: outlier inputs saved to {path}")
         decided = rounding_decided(sys_, qp, act, idx, kernel_out, gen)
         print(f"parity: the twin reproduces the kernel from input noise of relative size "
@@ -175,7 +183,7 @@ def max_errors(sys_, qp, act, gen):
         if not bool(decided.all()):
             raise AssertionError(f"kernel disagrees with its plain twin in envs "
                                  f"{idx[~decided].tolist()}, beyond rounding: {errs}")
-    return errs, outliers
+    return errs, inside_errs, outliers
 
 
 def main():
@@ -203,7 +211,7 @@ def main():
     in_contact = float((info.contact.vel.abs().amax(dim=(1, 2)) > 0).float().mean())
     print(f"parity state: {N_ENVS} envs after 10 twin steps, {in_contact:.3f} in contact")
     act = torch.rand((N_ENVS, env.action_size), generator=gen, device=device) * 2 - 1
-    errs, outliers = max_errors(sys_, qp, act, gen)
+    errs, inside_errs, outliers = max_errors(sys_, qp, act, gen)
 
     # -- main path: 200 env steps through envs.create ---------------------------
     state = env.reset(torch.Generator(device=device).manual_seed(1))
@@ -282,8 +290,11 @@ def main():
         "launches": launches,
         "max_abs_err": max(errs.values()),
         "max_abs_err_by_field": errs,
+        "max_abs_err_within_tolerance": max(inside_errs.values()),
+        "max_abs_err_within_tolerance_by_field": inside_errs,
         "tolerance": TOLERANCE,
         "outlier_envs_decided_by_rounding": outliers,
+        "max_outliers": MAX_OUTLIERS,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,

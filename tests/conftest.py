@@ -31,9 +31,3 @@ if not _HW:
 os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_test_cache")
 os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0.5")
 os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
-
-
-def pytest_configure(config):
-    config.addinivalue_line(
-        "markers", "cuda: needs a CUDA card; skips without one (tests/test_torch_cuda.py)"
-    )

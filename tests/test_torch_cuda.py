@@ -14,8 +14,6 @@ import torch
 from brax_torch.envs.ant import Ant
 from brax_torch.sim import kernels
 
-pytestmark = pytest.mark.cuda
-
 
 @pytest.fixture
 def cuda():
@@ -47,6 +45,7 @@ def test_kernel_matches_twin_in_contact(cuda):
     torch.testing.assert_close(out.vel, ref.vel, rtol=0, atol=3e-3)
     torch.testing.assert_close(out.ang, ref.ang, rtol=0, atol=3e-3)
     torch.testing.assert_close(info.contact.vel, info_ref.contact.vel, rtol=0, atol=3e-3)
+    torch.testing.assert_close(info.contact.ang, info_ref.contact.ang, rtol=0, atol=3e-3)
 
 
 def test_kernel_raises_on_unsupported_system(cuda):

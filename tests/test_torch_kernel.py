@@ -49,7 +49,7 @@ def test_twin_matches_pallas_kernel_math(states):
     tile_step = jax_kernels._build_tile_step(tp.jax_ant().sys)
     t = lambda x: jnp.asarray(np.transpose(x.numpy(), (1, 2, 0)))
     outs = tile_step(t(qp.pos), t(qp.rot), t(qp.vel), t(qp.ang), jnp.asarray(act.numpy().T))
-    pos, rot, vel, ang, cvel, _ = [np.transpose(np.asarray(o), (2, 0, 1)) for o in outs]
+    pos, rot, vel, ang, cvel, cang = [np.transpose(np.asarray(o), (2, 0, 1)) for o in outs]
 
     n = tp.N_ENVS
     reset, contact = slice(0, n), slice(n, 2 * n)
@@ -59,10 +59,12 @@ def test_twin_matches_pallas_kernel_math(states):
     np.testing.assert_allclose(got(qp_out.vel, reset), vel[reset], atol=5e-4)
     np.testing.assert_allclose(got(qp_out.ang, reset), ang[reset], atol=5e-4)
     np.testing.assert_allclose(got(info.contact.vel, reset), cvel[reset], atol=5e-4)
+    np.testing.assert_allclose(got(info.contact.ang, reset), cang[reset], atol=5e-4)
     assert (np.abs(cvel[contact]) > 0).any(axis=(1, 2)).mean() > 0.5
     np.testing.assert_allclose(got(qp_out.pos, contact), pos[contact], atol=1e-4)
     np.testing.assert_allclose(got(qp_out.vel, contact), vel[contact], atol=3e-3)
     np.testing.assert_allclose(got(info.contact.vel, contact), cvel[contact], atol=3e-3)
+    np.testing.assert_allclose(got(info.contact.ang, contact), cang[contact], atol=3e-3)
 
 
 def test_wrapper_runs_the_twin_on_cpu(states):
