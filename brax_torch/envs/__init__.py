@@ -1,8 +1,8 @@
 """Environment registry.
 
-Counterpart of `brax_tpu/envs/__init__.py`.  Only ant is ported (with the
-fork's default of contact-force observations); the other environments are
-queued in ROADMAP.md.
+Counterpart of `brax_tpu/envs/__init__.py`.  Ported so far: ant (with the
+fork's default of contact-force observations) and the trainer test env fast;
+the other environments are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -13,9 +13,11 @@ from typing import Optional
 from brax_torch.envs import wrappers
 from brax_torch.envs.ant import Ant
 from brax_torch.envs.base import Env, State, Wrapper
+from brax_torch.envs.fast import Fast
 
 _envs = {
     "ant": functools.partial(Ant, use_contact_forces=True),
+    "fast": Fast,
 }
 
 

@@ -17,6 +17,15 @@ from brax_torch.envs import base
 from brax_torch.sim.types import QP, Tensor
 
 
+def wrap_for_training(env: base.Env, episode_length: int = 1000,
+                      action_repeat: int = 1) -> base.Wrapper:
+    """Episode -> Vmap -> AutoReset wrapper stack (v1 envs)."""
+    env = EpisodeWrapper(env, episode_length, action_repeat)
+    env = VmapWrapper(env)
+    env = AutoResetWrapper(env)
+    return env
+
+
 class VmapWrapper(base.Wrapper):
     """The identity: the wrapped env already steps its whole batch."""
 

@@ -8,23 +8,19 @@ functions (the counterpart of the JAX package's jnp `_pbd_step`); on CUDA
 tensors it launches the kernel or raises, and never falls back to the twin.
 
 The kernel is built with nvcc at first use, into `build/brax_torch/` beside
-the package, keyed by a hash of its source, and loaded with ctypes.
+the package, keyed by a hash of its source, and loaded with ctypes
+(`brax_torch/cuda_build.py`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import TYPE_CHECKING, List, Tuple
 
 import numpy as np
 import torch
 
+from brax_torch import cuda_build
 from brax_torch.sim import actuators as actuators_mod
 from brax_torch.sim import colliders as colliders_mod
 from brax_torch.sim import joints as joints_mod
@@ -33,12 +29,8 @@ from brax_torch.sim.types import DP, DQ, QP, Info, Tensor
 if TYPE_CHECKING:
     from brax_torch.sim.system import System
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "pbd_step.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "brax_torch"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+SOURCE = cuda_build.CSRC / "pbd_step.cu"
+BUILD_DIR = cuda_build.BUILD_DIR
 # must equal MAX_BODIES / MAX_CONTACTS / MAX_ACT in pbd_step.cu (checked at load)
 MAX_BODIES, MAX_CONTACTS, MAX_ACT = 16, 16, 32
 # 64-thread blocks: 4096 envs spread over 64 blocks, so over 64 of the 132 SMs
@@ -155,74 +147,25 @@ def _device_tables(sys: System, device: torch.device) -> Tuple[Tensor, Tensor]:
 # ---------------------------------------------------------------------------
 
 
-class _Library:
-    """The compiled kernel, built at first use."""
-
-    lib = None
-    ptxas = ""
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build pbd_step.cu")
-    return path
+def _setup(lib, path) -> None:
+    fn = lib.brax_pbd_step
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    for name, want in (("brax_pbd_step_max_bodies", MAX_BODIES),
+                       ("brax_pbd_step_max_contacts", MAX_CONTACTS),
+                       ("brax_pbd_step_max_act", MAX_ACT)):
+        getter = getattr(lib, name)
+        getter.argtypes, getter.restype = [], ctypes.c_int
+        if getter() != want:
+            raise RuntimeError(f"{name} in {path} disagrees with kernels.py")
 
 
-def build() -> Path:
-    """Compiles pbd_step.cu for sm_90a unless a build of this source exists.
-
-    Returns the shared library's path; nvcc's ptxas report (registers,
-    spills) is kept beside it as `<name>.ptxas.txt`.
-    """
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"pbd_step-{key}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stdout}\n{proc.stderr}")
-        out.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
-
-
-def _library():
-    if _Library.lib is None:
-        path = build()
-        lib = ctypes.CDLL(str(path))
-        fn = lib.brax_pbd_step
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        for name, want in (("brax_pbd_step_max_bodies", MAX_BODIES),
-                           ("brax_pbd_step_max_contacts", MAX_CONTACTS),
-                           ("brax_pbd_step_max_act", MAX_ACT)):
-            getter = getattr(lib, name)
-            getter.argtypes, getter.restype = [], ctypes.c_int
-            if getter() != want:
-                raise RuntimeError(f"{name} in {path} disagrees with kernels.py")
-        _Library.lib = lib
-        _Library.ptxas = path.with_suffix(".ptxas.txt").read_text()
-    return _Library.lib
+_LIBRARY = cuda_build.Library(SOURCE, _setup)
 
 
 def ptxas_report() -> str:
     """nvcc's ptxas output for the loaded kernel (registers, spills)."""
-    _library()
-    return _Library.ptxas
+    return _LIBRARY.ptxas_report()
 
 
 # ---------------------------------------------------------------------------
@@ -339,7 +282,7 @@ def pbd_step_soa(sys: System, pos: Tensor, rot: Tensor, vel: Tensor, ang: Tensor
     nj = sum(g.n for g in sys.joint_groups)
     na = sum(a.n for a in sys.actuator_groups)
     nc = sum(_n_contacts(c) for c in sys.contact_groups)
-    lib = _library()
+    lib = _LIBRARY.get()
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.brax_pbd_step(
         *[t.data_ptr() for t in ins + outs], ftab.data_ptr(), itab.data_ptr(),

@@ -14,10 +14,22 @@
 4. drives the main path: envs.create("ant", batch_size=4096), reset, 200
    env.step calls with random actions, and checks that the kernel ran once
    per step and that every observation is finite;
-5. times the kernel, the twin and env.step, and prints one JSON line per
-   kernel and, last, {"ok": true, "device": {...}}.
+5. times the kernel, the twin and env.step;
+6. holds the fused MLP kernels (brax_torch/csrc/fused_mlp.cu, forward and
+   backward) against their plain versions at the PPO ant recipe's shapes,
+   in bf16 and f32 modes;
+7. drives PPO: ppo.train on ant with the published recipe
+   (DEFAULT_PPO_PARAMS["ant"]) at full width for 3 training steps and one
+   evaluation of 128 envs, and checks the exact launch counts of all three
+   kernels, finite losses, changed parameters and a finite eval reward;
+8. times the fused kernels, their plain versions and the same chains as
+   F.linear calls (cuBLAS, a yardstick), PPO env-steps/s with the fused
+   kernels on and off, and profiles one training step each way;
+9. prints one JSON line listing every kernel and, last,
+   {"ok": true, "device": {...}}.
 
-It fails, printing no result, without a CUDA device.  Imports nothing of JAX.
+Both CUDA sources are built at the start, one nvcc each, in parallel.  It
+fails, printing no result, without a CUDA device.  Imports nothing of JAX.
 """
 
 import json
@@ -27,10 +39,15 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from brax_torch import envs
+from brax_torch import cuda_build, envs
+from brax_torch.braxlines.defaults import DEFAULT_PPO_PARAMS
 from brax_torch.sim import kernels
+from brax_torch.training import fused_mlp
+from brax_torch.training.agents.ppo import networks as ppo_networks
+from brax_torch.training.agents.ppo import train as ppo
 
 N_ENVS = 4096
 MAIN_STEPS = 200
@@ -45,9 +62,27 @@ PERTURBED_COPIES = 64
 # more outlier envs than this fails outright (runs of this script on an H100
 # at the seeds below have shown 1 of 4096)
 MAX_OUTLIERS = 4
-# H100 SXM data sheet: HBM3 bandwidth and fp32 rate outside the tensor cores
+# H100 SXM data sheet: HBM3 bandwidth, fp32 rate outside the tensor cores,
+# dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+
+# the PPO ant recipe's MLP chains (make_ppo_networks' defaults, 87 obs, 8 actions)
+CHAINS = {"value": [87] + [256] * 5 + [1], "policy": [87] + [32] * 4 + [16]}
+# (chain, rows) as the main path launches them: minibatch [T=5, 1024] losses
+# (5120 rows), the rollout's policy at 2048 envs, the bootstrap value at 1024
+CHAIN_SHAPES = [("value", 5120), ("policy", 5120), ("policy", 2048), ("value", 1024)]
+# f32 mode: tests/test_fused_mlp.py's tolerances (|err| <= atol + rtol |plain|)
+F32_TOL = {"fwd": (2e-5, 2e-5), "bwd": (2e-4, 2e-5)}
+# bf16 mode: max |kernel - plain| <= BF16_REL * max |plain|, per output.  The
+# two round the same values to bf16, but f32 sums taken in another order
+# can round an activation to a neighbouring bf16 number
+BF16_REL = 1e-2
+PPO_STEPS = 3
+PPO_EVAL_ENVS = 128
+PROFILE_EPISODE = 10
+DEVICE = torch.device("cuda")
 
 
 def card() -> str:
@@ -186,21 +221,243 @@ def max_errors(sys_, qp, act, gen):
     return errs, inside_errs, outliers
 
 
+# ---------------------------------------------------------------------------
+# fused MLP kernels
+# ---------------------------------------------------------------------------
+
+
+def chain_inputs(name, rows, seed=0):
+    """A chain's input, lecun-uniform weights, small biases and an output
+    gradient of a mean loss (1 / rows scale), on the card."""
+    dims = CHAINS[name]
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn((rows, dims[0]), generator=gen, device=DEVICE)
+    ws = [(torch.rand((a, b), generator=gen, device=DEVICE) * 2 - 1) * (3.0 / a) ** 0.5
+          for a, b in zip(dims[:-1], dims[1:])]
+    bs = [torch.randn((b,), generator=gen, device=DEVICE) * 0.1 for b in dims[1:]]
+    g = torch.randn((rows, dims[-1]), generator=gen, device=DEVICE) / rows
+    return dims, x, ws, bs, g
+
+
+def check_chain(name, rows, bf16):
+    """Kernel against plain version, forward and backward; raises on any
+    output outside the tolerance.  Returns {"fwd"|"bwd": error summary}."""
+    dims, x, ws, bs, g = chain_inputs(name, rows)
+    y = fused_mlp.chain_fwd(x, ws, bs, "swish", bf16)
+    dx, dws, dbs = fused_mlp.chain_bwd(x, ws, bs, g, "swish", bf16)
+    torch.cuda.synchronize(DEVICE)
+    y_p = fused_mlp.chain_fwd_plain(x, ws, bs, "swish", bf16)
+    pdx, pdws, pdbs = fused_mlp.chain_bwd_plain(x, ws, bs, g, "swish", bf16)
+    outputs = {
+        "fwd": [("y", y, y_p)],
+        "bwd": [("dx", dx, pdx)] + [(f"dW{i}", a, b) for i, (a, b) in enumerate(zip(dws, pdws))]
+        + [(f"db{i}", a, b) for i, (a, b) in enumerate(zip(dbs, pdbs))],
+    }
+    summary = {}
+    for kind, pairs in outputs.items():
+        worst, max_err, rel = 0.0, 0.0, 0.0
+        for label, got, want in pairs:
+            err = (got - want).abs()
+            if bf16:
+                frac = float(err.max() / (BF16_REL * want.abs().max()))
+            else:
+                rtol, atol = F32_TOL[kind]
+                frac = float((err / (atol + rtol * want.abs())).max())
+            if frac > 1:
+                raise AssertionError(f"fused_mlp {kind} {name}@{rows} {'bf16' if bf16 else 'f32'}: "
+                                     f"{label} max |kernel - plain| {float(err.max()):.3e} is "
+                                     f"{frac:.2f}x the tolerance")
+            worst = max(worst, frac)
+            max_err = max(max_err, float(err.max()))
+            rel = max(rel, float(err.mean() / want.abs().mean()))
+        summary[kind] = {"max_abs_err": max_err, "max_mean_rel_err": rel,
+                         "fraction_of_tolerance": worst}
+    return summary
+
+
+def chain_bound(dims, rows, bf16, backward):
+    """(bound_ms, bound_by, ops, bytes) of one chain call.
+
+    Matmul operations at the bf16 tensor-core or the fp32 rate; elementwise
+    ones (bias add 1, swish 4, swish' 6 and its product 1, db's sum 1 per
+    element) at the fp32 rate.  Bytes: each input read once, each output
+    written once, float32.  The backward recomputes the forward but its last
+    layer, then runs dW and dx for every layer."""
+    pairs = [a * b for a, b in zip(dims[:-1], dims[1:])]
+    outs, hidden = sum(dims[1:]), sum(dims[1:-1])
+    if backward:
+        mm = 2 * rows * (sum(pairs[:-1]) + 2 * sum(pairs))
+        elem = rows * ((outs - dims[-1]) + 4 * hidden + 7 * hidden + outs)
+        n_bytes = 4 * (2 * rows * dims[0] + rows * dims[-1] + 2 * (sum(pairs) + outs))
+    else:
+        mm = 2 * rows * sum(pairs)
+        elem = rows * (outs + 4 * hidden)
+        n_bytes = 4 * (rows * dims[0] + sum(pairs) + outs + rows * dims[-1])
+    ops_ms = (mm / (BF16_OPS_PER_S if bf16 else FP32_OPS_PER_S) + elem / FP32_OPS_PER_S) * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    return max(ops_ms, bytes_ms), bound_by, mm + elem, n_bytes
+
+
+def time_chain(name, rows, bf16):
+    """ms per call of each kernel, its plain version, and the same chain as
+    F.linear calls (cuBLAS) in the same precision; CUDA events."""
+    dims, x, ws, bs, g = chain_inputs(name, rows)
+    t = {
+        "fwd": cuda_ms(lambda: fused_mlp.chain_fwd(x, ws, bs, "swish", bf16), 200, 20),
+        "bwd": cuda_ms(lambda: fused_mlp.chain_bwd(x, ws, bs, g, "swish", bf16), 200, 20),
+        "plain_fwd": cuda_ms(lambda: fused_mlp.chain_fwd_plain(x, ws, bs, "swish", bf16), 50, 5),
+        "plain_bwd": cuda_ms(lambda: fused_mlp.chain_bwd_plain(x, ws, bs, g, "swish", bf16),
+                             50, 5),
+    }
+    dt = torch.bfloat16 if bf16 else torch.float32
+    wl = [w.t().contiguous().to(dt).requires_grad_() for w in ws]
+    bl = [b.to(dt).requires_grad_() for b in bs]
+
+    def linear_chain(h):
+        for i, (w, b) in enumerate(zip(wl, bl)):
+            h = F.linear(h, w, b)
+            if i < len(wl) - 1:
+                h = F.silu(h)
+        return h
+
+    with torch.no_grad():
+        t["cublas_fwd"] = cuda_ms(lambda: linear_chain(x.to(dt)), 200, 20)
+    xl = x.to(dt).requires_grad_()
+    y = linear_chain(xl)
+    gl = g.to(dt)
+    t["cublas_bwd"] = cuda_ms(
+        lambda: torch.autograd.grad(y, [xl, *wl, *bl], gl, retain_graph=True), 200, 20)
+    return t
+
+
+# ---------------------------------------------------------------------------
+# PPO
+# ---------------------------------------------------------------------------
+
+
+def recipe():
+    return dict(DEFAULT_PPO_PARAMS["ant"])
+
+
+def env_steps_per_training_step(p):
+    return p["batch_size"] * p["unroll_length"] * p["num_minibatches"] * p["action_repeat"]
+
+
+def launch_plan(p):
+    """(rollout env steps, minibatch steps) per training step, and eval env
+    steps, of a recipe."""
+    return (p["batch_size"] * p["num_minibatches"] // p["num_envs"] * p["unroll_length"],
+            p["num_updates_per_batch"] * p["num_minibatches"],
+            p["episode_length"] // p["action_repeat"])
+
+
+def expected_launches(p, steps):
+    """(fwd, bwd, pbd_step) launches of `steps` training steps and one
+    evaluation: the rollout runs the policy once per env step; each
+    minibatch step runs the policy, the value and the bootstrap value
+    forward, and the policy and value backward (GAE detaches the bootstrap
+    value); the physics runs action_repeat times per env step."""
+    rollout, sgd, eval_steps = launch_plan(p)
+    return (steps * (rollout + 3 * sgd) + eval_steps, steps * 2 * sgd,
+            (steps * rollout + eval_steps) * p["action_repeat"])
+
+
+class InitRecorder:
+    """A network factory that keeps the networks it makes and a copy of the
+    parameters each network's `init` returns."""
+
+    def __init__(self):
+        self.networks, self.initial = None, {}
+
+    def factory(self, *args, **kwargs):
+        self.networks = ppo_networks.make_ppo_networks(*args, **kwargs)
+        for side in ("policy", "value"):
+            net = getattr(self.networks, f"{side}_network")
+            net.init = self._recording(side, net.init)
+        return self.networks
+
+    def _recording(self, side, init):
+        def wrapped(generator):
+            params = init(generator)
+            self.initial[side] = {k: v.detach().clone() for k, v in params.items()}
+            return params
+        return wrapped
+
+
+def run_ppo(fused, steps, **kw):
+    p = recipe()
+    p.update(num_timesteps=steps * env_steps_per_training_step(p), num_evals=1)
+    p.update(kw)
+    return ppo.train("ant", num_eval_envs=PPO_EVAL_ENVS, use_fused_kernel=fused, seed=0,
+                     device=DEVICE, **p)
+
+
+def profile_training_step(fused):
+    """Device time, device-op count and top kernels of the second of two
+    training steps (the host range "ppo/training_step", which ends in a
+    synchronise), and the host time of its rollout and SGD ranges.
+
+    The episode is cut to PROFILE_EPISODE steps so that the run's one
+    evaluation stays short; a training step does the same work at any
+    episode length (auto-reset runs every step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_ppo(fused, steps=2, episode_length=PROFILE_EPISODE)
+    events = prof.events()
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    ranges = lambda name: sorted((e for e in events if e.name == name and e.device_type == cpu),
+                                 key=lambda e: e.time_range.start)
+    step = ranges("ppo/training_step")[-1]
+    t0, t1 = step.time_range.start, step.time_range.end
+    inside = lambda e: t0 <= e.time_range.start <= t1
+    # the profiler mirrors each record_function range (ours, the optimizer's)
+    # on the device timeline: those are not device work
+    ops = [e for e in events if e.device_type == cuda and inside(e)
+           and not getattr(e, "is_user_annotation", False) and "/" not in e.name
+           and "#" not in e.name]
+    by_name = {}
+    for e in ops:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    host = {name.split("/")[1]: sum(e.time_range.elapsed_us() for e in ranges(name) if inside(e))
+            for name in ("ppo/rollout", "ppo/sgd")}
+    host_by_name = {}
+    for e in events:
+        if e.device_type == cpu and inside(e) and not getattr(e, "is_user_annotation", False):
+            n, us = host_by_name.get(e.name, (0, 0.0))
+            host_by_name[e.name] = (n + 1, us + e.self_cpu_time_total)
+    return {
+        "step_us": t1 - t0,
+        "device_us": sum(us for _, us in by_name.values()),
+        "device_ops": len(ops),
+        "host_us": host,
+        "top": sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8],
+        "host_top": sorted(host_by_name.items(), key=lambda kv: -kv[1][1])[:8],
+    }
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
     device = torch.device("cuda")
+    start = time.perf_counter()
+    phase = lambda label: print(f"[{time.perf_counter() - start:.1f} s] {label}", flush=True)
     name_limit = card()
     print(name_limit)
     tag = f"[{name_limit}]"
 
-    # -- build ---------------------------------------------------------------
+    # -- build: both sources, one nvcc each, in parallel -------------------------
     t0 = time.perf_counter()
-    lib_path = kernels.build()
-    print(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+    built = cuda_build.build(kernels.SOURCE, fused_mlp.SOURCE)
+    print(f"build: {', '.join(p.name for p in built.values())} in "
+          f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a, in parallel)")
     print(kernels.ptxas_report().strip())
+    print(fused_mlp.ptxas_report().strip())
 
     # -- kernel against its plain twin at 4096 envs, in contact ---------------
+    phase("pbd_step parity")
     env = envs.create("ant", episode_length=1000, auto_reset=True, batch_size=N_ENVS)
     sys_ = env.sys
     gen = torch.Generator(device=device).manual_seed(0)
@@ -214,6 +471,7 @@ def main():
     errs, inside_errs, outliers = max_errors(sys_, qp, act, gen)
 
     # -- main path: 200 env steps through envs.create ---------------------------
+    phase("main path: env.step")
     state = env.reset(torch.Generator(device=device).manual_seed(1))
     act_gen = torch.Generator(device=device).manual_seed(2)
     kernels.pbd_step_soa.launches = 0
@@ -236,6 +494,7 @@ def main():
           f"done fraction {float(state.done.mean()):.4f}")
 
     # -- timings ------------------------------------------------------------
+    phase("pbd_step timings")
     soa = lambda x: x.permute(1, 2, 0).contiguous()
     ins = (soa(qp.pos), soa(qp.rot), soa(qp.vel), soa(qp.ang), act.t().contiguous())
     kernel_ms = cuda_ms(lambda: kernels.pbd_step_soa(sys_, *ins), reps=200, warmup=20)
@@ -281,6 +540,151 @@ def main():
     else:
         print("profile: no device time recorded (not measured)")
 
+    # -- fused MLP kernels against their plain versions, recipe shapes ------------
+    phase("fused_mlp parity")
+    checks = {}
+    for name, rows in CHAIN_SHAPES:
+        for mode in ("bf16", "f32"):
+            checks[name, rows, mode] = check_chain(name, rows, mode == "bf16")
+            for kind, r in checks[name, rows, mode].items():
+                print(f"parity fused_mlp_{kind} {name}@{rows} {mode}: max|kernel - plain| = "
+                      f"{r['max_abs_err']:.3e}, mean|err|/mean|plain| up to "
+                      f"{r['max_mean_rel_err']:.3e}, {r['fraction_of_tolerance']:.3f} of the "
+                      f"tolerance")
+
+    # -- main path 2: PPO on ant, the published recipe at full width ---------------
+    phase("main path: PPO")
+    p = recipe()
+    want = dict(zip(("fused_mlp_fwd", "fused_mlp_bwd", "pbd_step"),
+                    expected_launches(p, PPO_STEPS)))
+    recorder = InitRecorder()
+    kernels.pbd_step_soa.launches = 0
+    fused_mlp.chain_fwd.launches = fused_mlp.chain_bwd.launches = 0
+    t0 = time.perf_counter()
+    _, (_, policy_params), ppo_metrics = run_ppo(True, PPO_STEPS,
+                                                 network_factory=recorder.factory)
+    torch.cuda.synchronize()
+    ppo_s = time.perf_counter() - t0
+    ppo_launches = {"fused_mlp_fwd": fused_mlp.chain_fwd.launches,
+                    "fused_mlp_bwd": fused_mlp.chain_bwd.launches,
+                    "pbd_step": kernels.pbd_step_soa.launches}
+    if ppo_launches != want:
+        raise AssertionError(f"PPO launches {ppo_launches}, expected {want}")
+    for key in ("training/total_loss", "training/policy_loss", "training/v_loss",
+                "training/entropy_loss", "eval/episode_reward"):
+        if not np.isfinite(ppo_metrics[key]):
+            raise AssertionError(f"{key} = {ppo_metrics[key]}")
+    moved = {}
+    for side in ("policy", "value"):
+        now = dict(getattr(recorder.networks, f"{side}_network").mlp.named_parameters())
+        for k, before in recorder.initial[side].items():
+            moved[f"{side}.{k}"] = float((now[k].detach() - before).abs().max())
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"parameters that did not change: "
+                             f"{[k for k, v in moved.items() if not v > 0]}")
+    if any(not torch.equal(policy_params[k], v.detach()) for k, v in
+           recorder.networks.policy_network.mlp.named_parameters()):
+        raise AssertionError("train returned other policy params than it trained")
+    print(f"main path PPO: {PPO_STEPS} training steps of ant "
+          f"(num_envs {p['num_envs']}, batch {p['batch_size']} x {p['num_minibatches']} "
+          f"minibatches, unroll {p['unroll_length']}, {p['num_updates_per_batch']} updates) + "
+          f"one eval of {PPO_EVAL_ENVS} envs in {ppo_s:.1f} s; launches {ppo_launches} "
+          f"(as expected); total_loss {ppo_metrics['training/total_loss']:.5g}, "
+          f"eval/episode_reward {ppo_metrics['eval/episode_reward']:.5g}; every parameter "
+          f"moved (smallest max change {min(moved.values()):.3e})")
+
+    # -- fused kernel timings ------------------------------------------------------
+    phase("fused_mlp timings")
+    times, bounds = {}, {}
+    for name, rows in CHAIN_SHAPES:
+        for mode in ("bf16", "f32"):
+            times[name, rows, mode] = t = time_chain(name, rows, mode == "bf16")
+            for kind in ("fwd", "bwd"):
+                bounds[kind, name, rows, mode] = b = chain_bound(
+                    CHAINS[name], rows, mode == "bf16", kind == "bwd")
+                print(f"timing {tag}: fused_mlp_{kind} {name}@{rows} {mode}: kernel "
+                      f"{t[kind]:.4f} ms, plain {t['plain_' + kind]:.4f} ms, F.linear chain "
+                      f"(cuBLAS) {t['cublas_' + kind]:.4f} ms; bound {b[0]:.5f} ms by {b[1]} "
+                      f"({b[2]:.4g} ops, {b[3]} bytes)")
+    # device ms per training step in each kernel, bf16 (the main path's mode)
+    n_rollout, n_sgd, _ = launch_plan(p)
+    per_step = {
+        "fwd": n_rollout * times["policy", 2048, "bf16"]["fwd"] + n_sgd * sum(
+            times[c, r, "bf16"]["fwd"] for c, r in (("policy", 5120), ("value", 5120),
+                                                   ("value", 1024))),
+        "bwd": n_sgd * sum(times[c, 5120, "bf16"]["bwd"] for c in ("policy", "value")),
+    }
+    per_step_launches = {"fwd": n_rollout + 3 * n_sgd, "bwd": 2 * n_sgd}
+    print(f"timing {tag}: per training step, fused_mlp_fwd {per_step['fwd']:.3f} ms "
+          f"({per_step_launches['fwd']} launches), fused_mlp_bwd {per_step['bwd']:.3f} ms "
+          f"({per_step_launches['bwd']} launches)")
+
+    # -- PPO env-steps/s, fused kernels on and off, in turns ---------------------
+    phase("PPO timings and profiles")
+    sps = {"on": [ppo_metrics["training/sps_after_first"]], "off": []}
+    for fused in (False, True, False, True, False):
+        sps["on" if fused else "off"].append(
+            run_ppo(fused, PPO_STEPS)[2]["training/sps_after_first"])
+    print(f"timing {tag}: PPO training env-steps/s over steps 2-{PPO_STEPS} (host clock): "
+          f"fused_mlp on {sps['on']}, off {sps['off']}")
+    profiles = {}
+    for mode, fused in (("on", True), ("off", False)):
+        profiles[mode] = prof = profile_training_step(fused)
+        if not prof["device_us"]:
+            print(f"profile {tag}: fused_mlp {mode}: no device time recorded (not measured)")
+            continue
+        print(f"profile {tag}: fused_mlp {mode}: one training step {prof['step_us'] / 1e3:.1f} ms "
+              f"(host), of it rollout {prof['host_us']['rollout'] / 1e3:.1f} ms and sgd "
+              f"{prof['host_us']['sgd'] / 1e3:.1f} ms; device busy "
+              f"{prof['device_us'] / 1e3:.1f} ms ({prof['device_us'] / prof['step_us']:.3f}), "
+              f"{prof['device_ops']} device ops (kernels, copies)")
+        for kname, (n, us) in prof["top"]:
+            print(f"  {us / 1e3:9.3f} ms/step  {n:6d}/step  {kname[:90]}")
+        print(f"profile {tag}: fused_mlp {mode}: host self time by op in that step:")
+        for kname, (n, us) in prof["host_top"]:
+            print(f"  {us / 1e3:9.3f} ms/step  {n:6d}/step  {kname[:90]}")
+
+    def fused_entry(kind, replaces, function):
+        main = ("value", 5120, "bf16")
+        b = bounds[(kind,) + main]
+        return {
+            "name": f"fused_mlp_{kind}",
+            "route": "cuda",
+            "source": "brax_torch/csrc/fused_mlp.cu",
+            "replaces": replaces,
+            "replaces_function": function,
+            "launches": ppo_launches[f"fused_mlp_{kind}"],
+            "launches_per_training_step": per_step_launches[kind],
+            "max_abs_err": max(c[kind]["max_abs_err"] for k, c in checks.items()
+                               if k[2] == "bf16"),
+            "max_abs_err_f32": max(c[kind]["max_abs_err"] for k, c in checks.items()
+                                   if k[2] == "f32"),
+            "tolerance": {"bf16_rel_to_max": BF16_REL, "f32_rtol_atol": F32_TOL[kind]},
+            "shape": "value chain 87-256x5-1 at 5120 rows, bf16",
+            "ms": times[main][kind],
+            "plain_ms": times[main]["plain_" + kind],
+            "bound_ms": b[0],
+            "bound_by": b[1],
+            "library_ms": None,
+            "cublas_chain_ms": times[main]["cublas_" + kind],
+            "ms_per_training_step": per_step[kind],
+            "by_shape": [
+                {"chain": c, "rows": r, "mode": m, "ms": times[c, r, m][kind],
+                 "plain_ms": times[c, r, m]["plain_" + kind],
+                 "cublas_chain_ms": times[c, r, m]["cublas_" + kind],
+                 "bound_ms": bounds[kind, c, r, m][0], "bound_by": bounds[kind, c, r, m][1],
+                 **checks[c, r, m][kind]}
+                for (c, r, m) in times
+            ],
+            "card": name_limit,
+        }
+
+    print(json.dumps({"ppo": {
+        "env_steps_per_s_fused_on": sps["on"], "env_steps_per_s_fused_off": sps["off"],
+        "eval_episode_reward": ppo_metrics["eval/episode_reward"],
+        "profile": {m: {k: v for k, v in prof.items() if k not in ("top", "host_top")}
+                    for m, prof in profiles.items()},
+        "card": name_limit}}))
     print(json.dumps({"kernels": [{
         "name": "pbd_step",
         "route": "cuda",
@@ -301,8 +705,14 @@ def main():
         "bound_by": bound_by,
         "library_ms": None,
         "env_steps_per_s": N_ENVS / step_s,
+        "launches_ppo": ppo_launches["pbd_step"],
         "card": name_limit,
-    }]}))
+    },
+        fused_entry("fwd", "brax_tpu/training/fused_mlp.py:204",
+                    "brax_tpu/training/fused_mlp.py::_fwd_kernel"),
+        fused_entry("bwd", "brax_tpu/training/fused_mlp.py:247",
+                    "brax_tpu/training/fused_mlp.py::_bwd_kernel"),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

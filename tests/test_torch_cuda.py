@@ -1,4 +1,5 @@
-"""The CUDA PBD kernel against its plain-torch twin, on a CUDA card.
+"""The CUDA kernels (PBD step, fused MLP) against their plain versions, on a
+CUDA card.
 
 These tests skip without a card.  This file imports no JAX, so that it runs
 where only PyTorch is installed:
@@ -13,6 +14,7 @@ import torch
 
 from brax_torch.envs.ant import Ant
 from brax_torch.sim import kernels
+from brax_torch.training import fused_mlp
 
 
 @pytest.fixture
@@ -59,3 +61,98 @@ def test_kernel_rejects_cpu_mixed_inputs(cuda):
     env, qp, act = _contact_state(cuda, n=32, steps=0)
     with pytest.raises(ValueError, match="one CUDA device"):
         kernels.pbd_step(env.sys, qp, act.cpu())
+
+
+# ---------------------------------------------------------------------------
+# fused MLP kernels
+# ---------------------------------------------------------------------------
+
+# f32: tests/test_fused_mlp.py's tolerances; bf16: BF16_REL of the largest
+# plain-version value (tests/test_torch_fused_mlp.py)
+BF16_REL = 1e-2
+
+
+def _chain(device, lead, d0, sizes, seed=0):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    dims = [d0, *sizes]
+    x = torch.randn(lead + (d0,), generator=gen)
+    ws = [(torch.rand((a, b), generator=gen) * 2 - 1) * (3.0 / a) ** 0.5
+          for a, b in zip(dims[:-1], dims[1:])]
+    bs = [torch.randn((b,), generator=gen) * 0.1 for b in dims[1:]]
+    g = torch.randn(lead + (dims[-1],), generator=gen)
+    to = lambda t: t.to(device)
+    return to(x), [to(w) for w in ws], [to(b) for b in bs], to(g)
+
+
+def _close(got, want, bf16, kind):
+    if bf16:
+        err = float((got - want).abs().max())
+        assert err <= BF16_REL * float(want.abs().max()), (kind, err)
+    elif kind == "fwd":
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("lead,d0,sizes,activation", [
+    ((137,), 87, (256,) * 5 + (1,), "swish"),
+    ((137,), 87, (32,) * 4 + (16,), "swish"),
+    ((64,), 87, (64, 64, 8), "relu"),
+    ((33,), 87, (40, 3), "tanh"),
+    ((5, 33), 29, (64, 7), "swish"),
+])
+def test_fused_kernels_match_plain(cuda, lead, d0, sizes, activation, bf16):
+    x, ws, bs, g = _chain(cuda, lead, d0, sizes)
+    x2, g2 = x.reshape(-1, d0), g.reshape(-1, sizes[-1])
+    y = fused_mlp.chain_fwd(x2, ws, bs, activation, bf16)
+    dx, dws, dbs = fused_mlp.chain_bwd(x2, ws, bs, g2, activation, bf16)
+    torch.cuda.synchronize()
+    _close(y, fused_mlp.chain_fwd_plain(x2, ws, bs, activation, bf16), bf16, "fwd")
+    pdx, pdws, pdbs = fused_mlp.chain_bwd_plain(x2, ws, bs, g2, activation, bf16)
+    for got, want in zip([dx, *dws, *dbs], [pdx, *pdws, *pdbs]):
+        _close(got, want, bf16, "bwd")
+
+
+def test_dense_chain_autograd_launches_both_kernels(cuda):
+    x, ws, bs, g = _chain(cuda, (5, 33), 29, (64, 7))
+    ws = [w.requires_grad_() for w in ws]
+    bs = [b.requires_grad_() for b in bs]
+    x.requires_grad_()
+    fwd0, bwd0 = fused_mlp.chain_fwd.launches, fused_mlp.chain_bwd.launches
+    y = fused_mlp.dense_chain(x, ws, bs, activation="swish", matmul_dtype=torch.float32)
+    assert fused_mlp.chain_fwd.launches == fwd0 + 1 and y.shape == (5, 33, 7)
+    y.backward(g)
+    assert fused_mlp.chain_bwd.launches == bwd0 + 1
+    ref = [t.detach().clone().requires_grad_() for t in (x, *ws, *bs)]
+    y_ref = fused_mlp.dense_chain_plain(ref[0], ref[1:3], ref[3:], "swish", torch.float32)
+    y_ref.backward(g)
+    _close(y, y_ref, False, "fwd")
+    for got, want in zip((x, *ws, *bs), ref):
+        _close(got.grad, want.grad, False, "bwd")
+
+
+def test_fused_kernels_raise_on_width_above_max(cuda):
+    x, ws, bs, g = _chain(cuda, (8,), 8, (fused_mlp.MAX_WIDTH + 1, 2))
+    with pytest.raises(NotImplementedError, match=str(fused_mlp.MAX_WIDTH + 1)):
+        fused_mlp.chain_fwd(x, ws, bs)
+    with pytest.raises(NotImplementedError, match=str(fused_mlp.MAX_WIDTH + 1)):
+        fused_mlp.chain_bwd(x, ws, bs, g)
+
+
+def test_fused_kernels_reject_cpu_mixed_inputs(cuda):
+    x, ws, bs, g = _chain(cuda, (8,), 8, (16, 2))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fused_mlp.chain_fwd(x, [ws[0].cpu(), ws[1]], bs)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fused_mlp.chain_bwd(x, ws, bs, g.cpu())
+
+
+def test_fused_counters_advance_by_one_per_call(cuda):
+    x, ws, bs, g = _chain(cuda, (8,), 8, (16, 2))
+    for _ in range(3):
+        fwd0, bwd0 = fused_mlp.chain_fwd.launches, fused_mlp.chain_bwd.launches
+        fused_mlp.chain_fwd(x, ws, bs)
+        assert fused_mlp.chain_fwd.launches == fwd0 + 1
+        fused_mlp.chain_bwd(x, ws, bs, g)
+        assert fused_mlp.chain_bwd.launches == bwd0 + 1
