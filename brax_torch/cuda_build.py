@@ -3,8 +3,9 @@
 Every `.cu` under `brax_torch/csrc/` has a plain C interface.  It is
 compiled for sm_90a at first use into `build/brax_torch/` beside the
 package, keyed by a hash of its source and the flags, and loaded with
-ctypes.  nvcc's ptxas report (registers, spills) is kept beside each
-library as `<name>.ptxas.txt`.  `build(*sources)` starts one nvcc for every
+ctypes.  A source may add flags of its own on a line
+`// nvcc-flags: ...`.  nvcc's ptxas report (registers, spills) is kept
+beside each library as `<name>.ptxas.txt`.  `build(*sources)` starts one nvcc for every
 source that has no build yet, all at once, and waits for them together.
 """
 
@@ -38,6 +39,12 @@ def nvcc() -> str:
     return path
 
 
+def source_flags(source: Path) -> list:
+    """The flags a source asks for on its `// nvcc-flags:` lines."""
+    return [flag for line in source.read_text().splitlines()
+            if line.startswith("// nvcc-flags:") for flag in line.split(":", 1)[1].split()]
+
+
 def library_path(source: Path) -> Path:
     """Where the build of `source` (as it is now) lives."""
     key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
@@ -58,7 +65,7 @@ def build(*sources: Path) -> Dict[Path, Path]:
     for src in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+        proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, *source_flags(src), "-o", tmp, str(src)],
                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         procs.append((src, tmp, proc))
     errors = []

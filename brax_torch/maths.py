@@ -199,3 +199,63 @@ def quat_to_3x3(q: Tensor) -> Tensor:
         torch.stack([xz - wy, yz + wx, 1 - (xx + yy)], dim=-1),
     ]
     return torch.stack(rows, dim=-2)
+
+
+def normalize_with_norm(x: Tensor, dim: int = -1):
+    """(x / |x|, |x|), zero-safe: the epsilon is added only where the norm
+    is exactly zero, so unit vectors pass through bit-exact."""
+    n = safe_norm(x, dim=dim)
+    return x / (n + 1e-6 * (n == 0.0)).unsqueeze(dim), n
+
+
+def orthogonals(n: Tensor):
+    """Two orthogonal in-plane vectors for the plane normal n (..., 3)."""
+    n_sqr = n[..., 2] * n[..., 2]
+    a = n[..., 1] * n[..., 1] + torch.where(n_sqr > 0.5, n_sqr, n[..., 0] * n[..., 0])
+    k = torch.sqrt(a)
+    zero = torch.zeros_like(k)
+    big = (a > 0.5)[..., None]
+    p_gt = torch.stack([zero, -n[..., 2], n[..., 1]], dim=-1)
+    p_lt = torch.stack([-n[..., 1], n[..., 0], n[..., 1]], dim=-1)
+    p = torch.where(big, p_gt, p_lt) * k[..., None]
+    q_gt = torch.stack([a * k, -n[..., 0] * p[..., 2], n[..., 0] * p[..., 1]], dim=-1)
+    q_lt = torch.stack([-n[..., 2] * p[..., 1], n[..., 2] * p[..., 0], a * k], dim=-1)
+    return p, torch.where(big, q_gt, q_lt)
+
+
+def from_to(v1: Tensor, v2: Tensor) -> Tensor:
+    """Quaternion rotating unit vector v1 onto unit vector v2."""
+    w = 1.0 + vdot(v1, v2)[..., None]
+    rot = torch.cat([w, cross(v1, v2)], dim=-1)
+    # antiparallel fallback: rotate pi about any axis orthogonal to v1
+    x, y = v1.new_tensor([1.0, 0.0, 0.0]), v1.new_tensor([0.0, 1.0, 0.0])
+    near_x = (torch.abs(vdot(v1, x.expand_as(v1))) > 0.99)[..., None]
+    rot_axis = torch.where(near_x, cross(v1, y.expand_as(v1)), cross(v1, x.expand_as(v1)))
+    flip = quat_rot_axis(rot_axis, torch.full(v1.shape[:-1], math.pi, dtype=v1.dtype,
+                                              device=v1.device))
+    rot = torch.where(rot[..., 0:1] < 1e-6, flip, rot)
+    return rot / torch.linalg.vector_norm(rot, dim=-1, keepdim=True)
+
+
+NS_ITERS = 4
+
+
+def inv_approximate(a: Tensor, a_inv: Tensor, tol: float = 1e-12,
+                    maxiter: int = 10) -> Tensor:
+    """Newton-Schulz inverse of the (..., n, n) matrices a, warm-started
+    from a_inv; where the start's residual norm exceeds 1 it starts from the
+    scaled transpose 0.5 a^T / tr(a a^T) instead.  Runs maxiter iterations,
+    freezing each matrix once its step falls to tol."""
+    a_t = a.transpose(-1, -2)
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    r0 = torch.linalg.matrix_norm(eye - a @ a_inv)
+    tr = torch.diagonal(a @ a_t, dim1=-2, dim2=-1).sum(-1)
+    cur = torch.where((r0 > 1)[..., None, None], 0.5 * a_t / tr[..., None, None], a_inv)
+    err = torch.ones_like(r0)
+    for _ in range(maxiter):
+        nxt = 2 * cur - cur @ a_t @ cur
+        nxt_err = torch.linalg.matrix_norm(nxt - cur)
+        live = err > tol
+        cur = torch.where(live[..., None, None], nxt, cur)
+        err = torch.where(live, nxt_err, err)
+    return cur

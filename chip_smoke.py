@@ -25,11 +25,23 @@
 8. times the fused kernels, their plain versions and the same chains as
    F.linear calls (cuBLAS, a yardstick), PPO env-steps/s with the fused
    kernels on and off, and profiles one training step each way;
-9. prints one JSON line listing every kernel and, last,
+9. holds the generalized-step kernel (brax_torch/csrc/gen_step.cu, built
+   for the v2 ant) against its plain version at 4096 envs from a state 10
+   plain env steps after reset, at one frame and at ant's five, with the
+   rounding rule of step 3 (at most GEN_MAX_OUTLIERS envs), and at five
+   frames from a contact-rich reset (the torso lowered);
+10. drives the v2 main path: brax_torch.v2.envs.create("ant",
+   batch_size=4096), reset, 200 env.step calls, one kernel launch each;
+11. times that kernel, its plain version and v2 env.step, profiles 20
+   env.step calls, counts the plain version's operations for the bound,
+   and times the kernel at 32, 64 and 128 threads per block at 4096 and
+   16384 envs;
+12. prints one JSON line listing every kernel and, last,
    {"ok": true, "device": {...}}.
 
-Both CUDA sources are built at the start, one nvcc each, in parallel.  It
-fails, printing no result, without a CUDA device.  Imports nothing of JAX.
+The three CUDA sources are built at the start, one nvcc each, in parallel.
+It fails, printing no result, without a CUDA device.  Imports nothing of
+JAX.
 """
 
 import json
@@ -48,6 +60,8 @@ from brax_torch.sim import kernels
 from brax_torch.training import fused_mlp
 from brax_torch.training.agents.ppo import networks as ppo_networks
 from brax_torch.training.agents.ppo import train as ppo
+from brax_torch.v2 import envs as v2_envs
+from brax_torch.v2.generalized import kernels as gen_kernels
 
 N_ENVS = 4096
 MAIN_STEPS = 200
@@ -79,6 +93,19 @@ F32_TOL = {"fwd": (2e-5, 2e-5), "bwd": (2e-4, 2e-5)}
 # two round the same values to bf16, but f32 sums taken in another order
 # can round an activation to a neighbouring bf16 number
 BF16_REL = 1e-2
+# generalized step: tests/test_v2_generalized_kernel.py's tolerances, and its
+# per-env bounds for several chained frames (median and p90 of the largest
+# error per env, q and qd), printed beside them for the five-frame step
+GEN_TOLERANCE = {"q": 2e-5, "qd": 2e-4, "minv": 2e-5, "x_pos": 2e-5, "x_rot": 2e-5,
+                 "xd_ang": 2e-4, "xd_vel": 2e-4, "c_pos": 2e-5, "c_pen": 2e-5}
+GEN_MULTI_FRAME_BOUNDS = {"q": (5e-5, 1e-3), "qd": (5e-4, 1e-2)}
+GEN_MAX_OUTLIERS = 8
+GEN_FRAMES = 5  # ant's n_frames (brax_tpu/v2/envs/ant.py:32)
+# the reference's static count of one gen ant env step (bench.py:291)
+GEN_REFERENCE_FLOPS = 687_989
+# threads per block and batch sizes of the gen_step block-size sweep
+GEN_BLOCKS = (32, 64, 128)
+GEN_SWEEP_ENVS = (N_ENVS, 4 * N_ENVS)
 PPO_STEPS = 3
 PPO_EVAL_ENVS = 128
 PROFILE_EPISODE = 10
@@ -116,7 +143,7 @@ class OpCount(TorchDispatchMode):
         "lt", "gt", "le", "ge", "eq", "ne", "logical_and", "logical_or", "bitwise_and",
         "bitwise_or", "acos", "reciprocal", "pow", "square",
     }
-    REDUCE = {"sum", "any", "all", "linalg_vector_norm"}
+    REDUCE = {"sum", "any", "all", "amax", "linalg_vector_norm"}
 
     def __init__(self):
         super().__init__()
@@ -217,6 +244,80 @@ def max_errors(sys_, qp, act, gen):
               f"{ROUNDING_NOISE} in {int(decided.sum())}/{outliers} outlier envs")
         if not bool(decided.all()):
             raise AssertionError(f"kernel disagrees with its plain twin in envs "
+                                 f"{idx[~decided].tolist()}, beyond rounding: {errs}")
+    return errs, inside_errs, outliers
+
+
+# ---------------------------------------------------------------------------
+# generalized step (v2)
+# ---------------------------------------------------------------------------
+
+
+def gen_per_env_errors(a, b):
+    n = a["q"].shape[0]
+    return {k: (a[k] - b[k]).abs().reshape(n, -1).amax(dim=1) for k in GEN_TOLERANCE}
+
+
+def gen_rounding_decided(sys_, ins, n_frames, idx, kernel_out, gen):
+    """rounding_decided for the generalized step: each outlier env's
+    (q, qd, M^-1, act) copied PERTURBED_COPIES times with relative noise of
+    ROUNDING_NOISE, stepped by the plain version, and held to GEN_TOLERANCE
+    against the kernel's output."""
+    k = PERTURBED_COPIES
+    scale = torch.tensor(ROUNDING_NOISE, device=DEVICE).repeat(k // len(ROUNDING_NOISE))
+
+    def noisy(x):
+        rep = x[idx].repeat_interleave(k, dim=0)
+        u = torch.rand(rep.shape, generator=gen, device=DEVICE) * 2 - 1
+        s = scale.repeat(len(idx)).reshape((-1,) + (1,) * (rep.dim() - 1))
+        return rep * (1 + s * u)
+
+    q, qd, minv, act = ins
+    out = gen_kernels.gen_step_plain(sys_, noisy(q), noisy(qd), noisy(minv),
+                                     act[idx].repeat_interleave(k, dim=0), n_frames)
+    want = {f: v[idx].repeat_interleave(k, dim=0) for f, v in kernel_out.items()}
+    errs = gen_per_env_errors(out, want)
+    ok = torch.stack([errs[f] <= GEN_TOLERANCE[f] for f in GEN_TOLERANCE]).all(dim=0)
+    return ok.reshape(len(idx), k).any(dim=1)
+
+
+def gen_max_errors(sys_, ins, n_frames, gen, label):
+    """Kernel vs plain version at n_frames: as max_errors, on GEN_TOLERANCE,
+    with at most GEN_MAX_OUTLIERS envs, each decided by rounding.  Also
+    prints the per-env median and p90 of the q and qd errors beside
+    GEN_MULTI_FRAME_BOUNDS and raises if they exceed them."""
+    out = gen_kernels.gen_step(sys_, *ins, n_frames)
+    ref = gen_kernels.gen_step_plain(sys_, *ins, n_frames)
+    torch.cuda.synchronize()
+    per_env = gen_per_env_errors(out, ref)
+    over = torch.stack([~(e <= GEN_TOLERANCE[k]) for k, e in per_env.items()]).any(dim=0)
+    errs, inside_errs = {}, {}
+    for k, e in per_env.items():
+        errs[k] = float(e.max())
+        inside_errs[k] = float(e[~over].max()) if bool((~over).any()) else float("nan")
+        print(f"gen_step parity {label} {k}: max|kernel - plain| = {errs[k]:.3e} "
+              f"over all envs, {inside_errs[k]:.3e} over the {int((~over).sum())} envs within "
+              f"tolerance (tolerance {GEN_TOLERANCE[k]:.0e}; this field within it in "
+              f"{int((e <= GEN_TOLERANCE[k]).sum())}/{e.numel()} envs)")
+    for k, (med_bound, p90_bound) in GEN_MULTI_FRAME_BOUNDS.items():
+        med, p90 = float(per_env[k].median()), float(per_env[k].quantile(0.9))
+        print(f"gen_step parity {label} {k}: per-env median {med:.3e} "
+              f"(bound {med_bound:.0e}), p90 {p90:.3e} (bound {p90_bound:.0e})")
+        if med >= med_bound or p90 >= p90_bound:
+            raise AssertionError(f"gen_step {k} per-env errors beyond the multi-frame bounds")
+    idx = over.nonzero().flatten()
+    outliers = len(idx)
+    print(f"gen_step parity {label}: {outliers} outlier envs of {over.numel()} "
+          f"(at most {GEN_MAX_OUTLIERS} allowed): {idx.tolist()}")
+    if outliers > GEN_MAX_OUTLIERS:
+        raise AssertionError(f"gen_step disagrees with its plain version in {outliers} envs: "
+                             f"{errs}")
+    if outliers:
+        decided = gen_rounding_decided(sys_, ins, n_frames, idx, out, gen)
+        print(f"gen_step parity: the plain version reproduces the kernel from input noise of "
+              f"relative size {ROUNDING_NOISE} in {int(decided.sum())}/{outliers} outlier envs")
+        if not bool(decided.all()):
+            raise AssertionError(f"gen_step disagrees with its plain version in envs "
                                  f"{idx[~decided].tolist()}, beyond rounding: {errs}")
     return errs, inside_errs, outliers
 
@@ -448,13 +549,16 @@ def main():
     print(name_limit)
     tag = f"[{name_limit}]"
 
-    # -- build: both sources, one nvcc each, in parallel -------------------------
+    # -- build: the three sources, one nvcc each, in parallel ---------------------
     t0 = time.perf_counter()
-    built = cuda_build.build(kernels.SOURCE, fused_mlp.SOURCE)
+    gen_env = v2_envs.create("ant", episode_length=1000, batch_size=N_ENVS)
+    gen_sys = gen_env.sys
+    built = cuda_build.build(kernels.SOURCE, fused_mlp.SOURCE, gen_kernels.kernel_source(gen_sys))
     print(f"build: {', '.join(p.name for p in built.values())} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a, in parallel)")
     print(kernels.ptxas_report().strip())
     print(fused_mlp.ptxas_report().strip())
+    print(gen_kernels.ptxas_report(gen_sys).strip())
 
     # -- kernel against its plain twin at 4096 envs, in contact ---------------
     phase("pbd_step parity")
@@ -622,7 +726,7 @@ def main():
     # -- PPO env-steps/s, fused kernels on and off, in turns ---------------------
     phase("PPO timings and profiles")
     sps = {"on": [ppo_metrics["training/sps_after_first"]], "off": []}
-    for fused in (False, True, False, True, False):
+    for fused in (False, True, False):
         sps["on" if fused else "off"].append(
             run_ppo(fused, PPO_STEPS)[2]["training/sps_after_first"])
     print(f"timing {tag}: PPO training env-steps/s over steps 2-{PPO_STEPS} (host clock): "
@@ -679,6 +783,112 @@ def main():
             "card": name_limit,
         }
 
+    # -- generalized step against its plain version, 4096 envs, in contact ---------
+    phase("gen_step parity")
+    gen = torch.Generator(device=device).manual_seed(0)
+    ps = gen_env.reset(gen).pipeline_state
+    q, qd, minv = ps.q, ps.qd, ps.mass_mx_inv
+    for _ in range(10):
+        act = torch.rand((N_ENVS, 8), generator=gen, device=device) * 2 - 1
+        out = gen_kernels.gen_step_plain(gen_sys, q, qd, minv, act, GEN_FRAMES)
+        q, qd, minv = out["q"], out["qd"], out["minv"]
+    gen_contact = float((out["c_pen"] > 0).any(dim=1).float().mean())
+    print(f"gen_step parity state: {N_ENVS} envs after 10 plain env steps, {gen_contact:.3f} "
+          f"with a foot in contact")
+    gen_ins = (q, qd, minv, torch.rand((N_ENVS, 8), generator=gen, device=device) * 2 - 1)
+    gen_checks = {f"{nf} frame(s)": gen_max_errors(gen_sys, gen_ins, nf, gen, f"{nf} frame(s)")
+                  for nf in (1, GEN_FRAMES)}
+    # a contact-rich start as well: reset noise with the torso lowered by up
+    # to 0.35, so that most envs start with a foot on the floor
+    q_noise = torch.rand((N_ENVS, 15), generator=gen, device=device) * 0.2 - 0.1
+    q_noise[:, 2] -= torch.rand(N_ENVS, generator=gen, device=device) * 0.35
+    ps = gen_env.unwrapped.reset_from_noise(
+        q_noise, 0.1 * torch.randn((N_ENVS, 14), generator=gen, device=device)).pipeline_state
+    low_contact = float((ps.contact.penetration > 0).any(dim=1).float().mean())
+    print(f"gen_step parity state: {N_ENVS} envs from reset, torso lowered, {low_contact:.3f} "
+          f"with a foot in contact")
+    low_ins = (ps.q, ps.qd, ps.mass_mx_inv, gen_ins[3])
+    label = f"{GEN_FRAMES} frame(s), lowered"
+    gen_checks[label] = gen_max_errors(gen_sys, low_ins, GEN_FRAMES, gen, label)
+
+    # -- main path 3: the v2 generalized ant, 200 env steps ---------------------------
+    phase("main path: v2 env.step")
+    state = gen_env.reset(torch.Generator(device=device).manual_seed(1))
+    act_gen = torch.Generator(device=device).manual_seed(2)
+    gen_kernels.gen_step_soa.launches = 0
+    for i in range(MAIN_STEPS):
+        if i == 20:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        act = torch.rand((N_ENVS, 8), generator=act_gen, device=device) * 2 - 1
+        state = gen_env.step(state, act)
+    torch.cuda.synchronize()
+    gen_step_s = (time.perf_counter() - t0) / (MAIN_STEPS - 20)
+    gen_launches = gen_kernels.gen_step_soa.launches
+    if gen_launches != MAIN_STEPS:
+        raise AssertionError(f"{MAIN_STEPS} v2 env steps made {gen_launches} gen_step launches")
+    if state.obs.shape != (N_ENVS, 27) or not bool(torch.isfinite(state.obs).all()):
+        raise AssertionError(f"v2 obs {tuple(state.obs.shape)}, finite "
+                             f"{bool(torch.isfinite(state.obs).all())}")
+    print(f"main path v2: {MAIN_STEPS} env.step calls, {gen_launches} gen_step launches, obs "
+          f"(4096, 27) finite, done fraction {float(state.done.mean()):.4f}")
+
+    # -- gen_step timings, bound and profile ----------------------------------------------
+    phase("gen_step timings")
+    soa = lambda x: x.reshape(N_ENVS, -1).t().contiguous()
+    gen_soa = tuple(soa(x) for x in gen_ins)
+    gen_ms = cuda_ms(lambda: gen_kernels.gen_step_soa(gen_sys, *gen_soa, GEN_FRAMES), 100, 10)
+    gen_plain_ms = cuda_ms(lambda: gen_kernels.gen_step_plain(gen_sys, *gen_ins, GEN_FRAMES), 3, 1)
+    counter = OpCount()
+    with counter:
+        gen_kernels.gen_step_plain(gen_sys, *gen_ins, GEN_FRAMES)
+    gen_bytes = (4 * N_ENVS * (sum(x.shape[0] for x in gen_soa) + sum(
+        int(np.prod(s)) for s in gen_kernels.out_shapes(gen_sys).values()))
+        + gen_kernels.pack_tables(gen_sys).nbytes)
+    gen_bytes_ms = gen_bytes / HBM_BYTES_PER_S * 1e3
+    gen_ops_ms = counter.ops / FP32_OPS_PER_S * 1e3
+    gen_bound_ms = max(gen_bytes_ms, gen_ops_ms)
+    gen_bound_by = "bytes" if gen_bytes_ms >= gen_ops_ms else "operations"
+    ref_ms = GEN_REFERENCE_FLOPS * N_ENVS / FP32_OPS_PER_S * 1e3
+    print(f"timing {tag}: gen_step kernel {gen_ms:.4f} ms/launch ({GEN_FRAMES} frames, "
+          f"{N_ENVS} envs, CUDA events, 100 launches)")
+    print(f"timing {tag}: gen_step plain version {gen_plain_ms:.3f} ms/step")
+    print(f"timing {tag}: v2 env.step {gen_step_s * 1e3:.4f} ms/step, "
+          f"{N_ENVS / gen_step_s:.1f} env-steps/s (host clock, {MAIN_STEPS - 20} steps)")
+    print(f"bound {tag}: gen_step {gen_bytes} bytes -> {gen_bytes_ms:.5f} ms at 3.35 TB/s; "
+          f"{counter.ops} fp32 ops (the plain version's, counted) -> {gen_ops_ms:.5f} ms at "
+          f"67 TFLOP/s; the reference's static count, {GEN_REFERENCE_FLOPS} flops per env "
+          f"step (bench.py:291), would be {ref_ms:.5f} ms")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            act = torch.rand((N_ENVS, 8), generator=act_gen, device=device) * 2 - 1
+            state = gen_env.step(state, act)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    gen_profile = {"device_us_per_step": sum(device_us(e) for e in events) / 20,
+                   "kernels_per_step": sum(e.count for e in events) / 20}
+    if gen_profile["device_us_per_step"]:
+        print(f"profile {tag}: 20 v2 env.step calls, {gen_profile['device_us_per_step']:.1f} us "
+              f"device time and {gen_profile['kernels_per_step']:.0f} kernels per step "
+              f"(host {gen_step_s * 1e6:.1f} us per step)")
+        for e in sorted(events, key=lambda e: -device_us(e))[:8]:
+            print(f"  {device_us(e) / 20:9.1f} us/step  {e.count / 20:6.2f}/step  {e.key[:90]}")
+    else:
+        print("profile: v2 env.step: no device time recorded (not measured)")
+
+    # -- gen_step block sizes: each block size twice, in turns ----------------------
+    phase("gen_step block sizes")
+    sweep = {}
+    for n_sweep in GEN_SWEEP_ENVS:
+        sweep_ins = tuple(x.repeat(1, n_sweep // N_ENVS).contiguous() for x in gen_soa)
+        sweep[n_sweep] = {b: [] for b in GEN_BLOCKS}
+        for block in GEN_BLOCKS + GEN_BLOCKS[::-1]:
+            ms = cuda_ms(lambda: gen_kernels.gen_step_soa(gen_sys, *sweep_ins, GEN_FRAMES,
+                                                          block=block), 30, 3)
+            sweep[n_sweep][block].append(ms)
+        print(f"timing {tag}: gen_step at {n_sweep} envs by threads per block (ms per launch, "
+              f"two turns each): {sweep[n_sweep]}")
+
     print(json.dumps({"ppo": {
         "env_steps_per_s_fused_on": sps["on"], "env_steps_per_s_fused_off": sps["off"],
         "eval_episode_reward": ppo_metrics["eval/episode_reward"],
@@ -712,6 +922,36 @@ def main():
                     "brax_tpu/training/fused_mlp.py::_fwd_kernel"),
         fused_entry("bwd", "brax_tpu/training/fused_mlp.py:247",
                     "brax_tpu/training/fused_mlp.py::_bwd_kernel"),
+        {
+            "name": "gen_step",
+            "route": "cuda",
+            "source": "brax_torch/csrc/gen_step.cu",
+            "replaces": "brax_tpu/v2/generalized/kernels.py:1164",
+            "replaces_function": "brax_tpu/v2/generalized/kernels.py::_build_tile_frames",
+            "launches": gen_launches,
+            "max_abs_err": max(max(c[0].values()) for c in gen_checks.values()),
+            "max_abs_err_by_check": {k: c[0] for k, c in gen_checks.items()},
+            "max_abs_err_within_tolerance": max(max(c[1].values()) for c in gen_checks.values()),
+            "tolerance": GEN_TOLERANCE,
+            "multi_frame_bounds": GEN_MULTI_FRAME_BOUNDS,
+            "outlier_envs_decided_by_rounding": {k: c[2] for k, c in gen_checks.items()},
+            "max_outliers": GEN_MAX_OUTLIERS,
+            "contact_share": {"after 10 steps": gen_contact, "lowered": low_contact},
+            "frames_per_launch": GEN_FRAMES,
+            "ms": gen_ms,
+            "plain_ms": gen_plain_ms,
+            "bound_ms": gen_bound_ms,
+            "bound_by": gen_bound_by,
+            "library_ms": None,
+            "ops": counter.ops,
+            "bytes": gen_bytes,
+            "reference_static_flops_per_env_step": GEN_REFERENCE_FLOPS,
+            "env_steps_per_s": N_ENVS / gen_step_s,
+            "profile": gen_profile,
+            "block": gen_kernels.BLOCK,
+            "ms_by_envs_and_block": sweep,
+            "card": name_limit,
+        },
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

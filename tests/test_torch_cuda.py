@@ -1,5 +1,5 @@
-"""The CUDA kernels (PBD step, fused MLP) against their plain versions, on a
-CUDA card.
+"""The CUDA kernels (PBD step, fused MLP, generalized step) against their
+plain versions, on a CUDA card.
 
 These tests skip without a card.  This file imports no JAX, so that it runs
 where only PyTorch is installed:
@@ -15,6 +15,10 @@ import torch
 from brax_torch.envs.ant import Ant
 from brax_torch.sim import kernels
 from brax_torch.training import fused_mlp
+from brax_torch.v2 import envs as v2_envs
+from brax_torch.v2.generalized import kernels as gen_kernels
+
+from tests.torch_parity import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture
@@ -156,3 +160,84 @@ def test_fused_counters_advance_by_one_per_call(cuda):
         assert fused_mlp.chain_fwd.launches == fwd0 + 1
         fused_mlp.chain_bwd(x, ws, bs, g)
         assert fused_mlp.chain_bwd.launches == bwd0 + 1
+
+
+# ---------------------------------------------------------------------------
+# generalized step (v2)
+# ---------------------------------------------------------------------------
+
+# tests/test_v2_generalized_kernel.py's tolerances
+GEN_TOL = {"q": 2e-5, "qd": 2e-4, "minv": 2e-5, "x_pos": 2e-5, "x_rot": 2e-5, "xd_ang": 2e-4,
+           "xd_vel": 2e-4, "c_pos": 2e-5, "c_pen": 2e-5}
+
+
+def _gen_state(device, n, steps=10):
+    """n v2 ants after `steps` plain-version env steps, and one more action."""
+    env = v2_envs.create("ant", batch_size=n, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    ps = env.reset(gen).pipeline_state
+    q, qd, minv = ps.q, ps.qd, ps.mass_mx_inv
+    for _ in range(steps):
+        act = torch.rand((n, 8), generator=gen, device=device) * 2 - 1
+        out = gen_kernels.gen_step_plain(env.sys, q, qd, minv, act, 5)
+        q, qd, minv = out["q"], out["qd"], out["minv"]
+    act = torch.rand((n, 8), generator=gen, device=device) * 2 - 1
+    return env.unwrapped.sys, (q, qd, minv, act)
+
+
+@pytest.mark.parametrize("n", [128, 4096])
+@pytest.mark.parametrize("n_frames", [1, 5])
+def test_gen_kernel_matches_plain(cuda, n, n_frames):
+    """Every env within tolerance at one frame; at five, where contact
+    thresholds can fall apart by rounding, all but 1 in 1000."""
+    sys, ins = _gen_state(cuda, n)
+    before = gen_kernels.gen_step_soa.launches
+    got = gen_kernels.gen_step(sys, *ins, n_frames)
+    torch.cuda.synchronize()
+    assert gen_kernels.gen_step_soa.launches == before + 1
+    want = gen_kernels.gen_step_plain(sys, *ins, n_frames)
+    inside = torch.ones(n, dtype=torch.bool, device=cuda)
+    for k, tol in GEN_TOL.items():
+        assert torch.isfinite(got[k]).all(), k
+        inside &= (got[k] - want[k]).abs().reshape(n, -1).amax(dim=1) <= tol
+    assert int((~inside).sum()) <= (0 if n_frames == 1 else n // 1000), int((~inside).sum())
+
+
+def test_gen_kernel_matches_plain_in_contact(cuda):
+    """Five frames from a contact-rich reset (the torso lowered by up to
+    0.35), 4096 envs: all but 1 in 1000 within tolerance."""
+    n = 4096
+    env = v2_envs.create("ant", batch_size=n, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q_noise = torch.rand((n, 15), generator=gen, device=cuda) * 0.2 - 0.1
+    q_noise[:, 2] -= torch.rand(n, generator=gen, device=cuda) * 0.35
+    ps = env.unwrapped.reset_from_noise(
+        q_noise, 0.1 * torch.randn((n, 14), generator=gen, device=cuda)).pipeline_state
+    assert float((ps.contact.penetration > 0).any(dim=1).float().mean()) > 0.5
+    ins = (ps.q, ps.qd, ps.mass_mx_inv, torch.rand((n, 8), generator=gen, device=cuda) * 2 - 1)
+    got = gen_kernels.gen_step(env.unwrapped.sys, *ins, 5)
+    want = gen_kernels.gen_step_plain(env.unwrapped.sys, *ins, 5)
+    inside = torch.ones(n, dtype=torch.bool, device=cuda)
+    for k, tol in GEN_TOL.items():
+        inside &= (got[k] - want[k]).abs().reshape(n, -1).amax(dim=1) <= tol
+    assert int((~inside).sum()) <= n // 1000, int((~inside).sum())
+
+
+def test_gen_env_step_launches_once_per_step(cuda):
+    env = v2_envs.create("ant", batch_size=256, device=cuda)
+    state = env.reset(torch.Generator(device=cuda).manual_seed(1))
+    before = gen_kernels.gen_step_soa.launches
+    for _ in range(3):
+        state = env.step(state, torch.zeros((256, 8), device=cuda))
+    torch.cuda.synchronize()
+    assert gen_kernels.gen_step_soa.launches == before + 3
+    assert state.obs.shape == (256, 27) and torch.isfinite(state.obs).all()
+
+
+def test_gen_kernel_raises_on_unsupported_system_and_cpu_inputs(cuda):
+    sys, ins = _gen_state(cuda, 32, steps=0)
+    other = dataclasses.replace(sys, actuator_types="p" * 8)
+    with pytest.raises(NotImplementedError, match="actuator types"):
+        gen_kernels.gen_step(other, *ins, 1)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        gen_kernels.gen_step(sys, *ins[:3], ins[3].cpu(), 1)

@@ -12,6 +12,8 @@ import torch
 from brax_torch import envs
 from brax_torch.envs import wrappers
 
+from tests.torch_parity import one_torch_thread  # noqa: F401
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "brax_tpu")
 
@@ -94,7 +96,8 @@ def _imports(path):
 
 def test_port_imports_no_jax():
     files = sorted((REPO / "brax_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 30
+    assert len(files) > 50
+    assert REPO / "brax_torch" / "v2" / "generalized" / "kernels.py" in files
     bad = [
         (str(f.relative_to(REPO)), name)
         for f in files
@@ -107,7 +110,8 @@ def test_port_imports_no_jax():
 def test_importing_the_port_loads_no_brax_tpu():
     code = (
         "import sys, brax_torch.envs, brax_torch.sim.kernels, brax_torch.braxlines.defaults, "
-        "brax_torch.training.agents.ppo.train; "
+        "brax_torch.training.agents.ppo.train, brax_torch.v2.envs, brax_torch.v2.mjcf, "
+        "brax_torch.v2.generalized.kernels; "
         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('brax_tpu', 'flax', 'optax')))"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -21,6 +21,8 @@ import torch
 from brax_tpu.training import fused_mlp as jax_fused
 from brax_torch.training import fused_mlp
 
+from tests.torch_parity import one_torch_thread  # noqa: F401
+
 # the largest seen in these cases is 2.8e-3 (the 256-wide value chain)
 BF16_REL = 1e-2
 # tests/test_fused_mlp.py's shape cases, 137 rows and its 3-D batch:

@@ -23,6 +23,7 @@ from brax_torch.sim import kernels
 from brax_torch.sim.types import QP
 
 from tests import torch_parity as tp
+from tests.torch_parity import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -10,6 +10,8 @@ from brax_tpu import maths as jm
 from brax_tpu.sim import lowering
 from brax_torch import maths as tm
 
+from tests.torch_parity import one_torch_thread  # noqa: F401
+
 ATOL = 1e-6
 
 
@@ -42,6 +44,11 @@ CASES = {
     "safe_arccos": (lambda m, a: m.safe_arccos(a[..., 0] * 0.99), ("v",)),
     "quat_to_3x3": (lambda m, q: m.quat_to_3x3(q), ("q",)),
     "quat_rot_axis": (lambda m, a, b: m.quat_rot_axis(a, b[..., 0] * 3), ("v", "v")),
+    "normalize_with_norm_x": (lambda m, a: m.normalize_with_norm(a)[0], ("v",)),
+    "normalize_with_norm_n": (lambda m, a: m.normalize_with_norm(a)[1], ("v",)),
+    "orthogonals_p": (lambda m, a: m.orthogonals(m.normalize(a))[0], ("v",)),
+    "orthogonals_q": (lambda m, a: m.orthogonals(m.normalize(a))[1], ("v",)),
+    "from_to": (lambda m, a, b: m.from_to(m.normalize(a), m.normalize(b)), ("v", "v")),
 }
 
 
@@ -79,3 +86,20 @@ def test_safe_norm_zero_threshold():
     out = tm.safe_norm(torch.from_numpy(x))
     _close(out, jm.safe_norm(jnp.asarray(x)))
     assert out[0] == 0.0 and out[1] > 0.0
+
+
+def test_inv_approximate_matches_jax():
+    """Newton-Schulz from a warm start near the inverse, and from a start so
+    far off that the scaled-transpose fallback takes over."""
+    import jax
+
+    rs = np.random.RandomState(0)
+    b = rs.randn(8, 14, 14).astype(np.float32)
+    a = (b @ b.transpose(0, 2, 1) + 14 * np.eye(14)).astype(np.float32)
+    warm = np.linalg.inv(a + 0.05 * np.eye(14)).astype(np.float32)
+    warm[4:] *= 3.0  # residual norm above 1: the fallback start
+    with jax.default_matmul_precision("highest"):
+        ref = jax.vmap(lambda x, y: jm.inv_approximate(x, y, maxiter=4))(a, warm)
+    out = tm.inv_approximate(torch.from_numpy(a), torch.from_numpy(warm), maxiter=4)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(out[:4].numpy(), np.linalg.inv(a[:4]), atol=1e-5)

@@ -36,20 +36,11 @@ from brax_torch.training.agents.ppo import losses
 from brax_torch.training.agents.ppo import networks as ppo_networks
 from brax_torch.training.agents.ppo import train as ppo
 
+from tests.torch_parity import one_torch_thread  # noqa: F401
+
 OBS, ACT = 87, 8
 BF16_REL = 1e-2
 GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """The tensors here are tiny; beside the suite's other worker processes,
-    torch's intra-op threads only contend for the cores (the learning gate
-    took minutes instead of seconds)."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 @functools.lru_cache(maxsize=None)

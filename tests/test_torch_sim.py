@@ -20,6 +20,7 @@ from brax_torch.sim.system import System, flatten
 from brax_torch.sim.types import QP
 
 from tests import torch_parity as tp
+from tests.torch_parity import one_torch_thread  # noqa: F401
 
 
 def _assert_tables_equal(got, want):
