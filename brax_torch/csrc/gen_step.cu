@@ -438,6 +438,13 @@ __device__ float sum_all(const float* m) {
 // Newton-Schulz M^-1 warm-started from cur (replaced by the result); t1, t2
 // are ND*ND scratch.
 __device__ void inv_ns(const float* mx, float* cur, float* t1, float* t2) {
+  // The warm start's upper triangle, mirrored.  2X - X M X keeps a symmetric
+  // X symmetric but doubles any antisymmetric part at every iteration (16x a
+  // frame), and the inverse pipeline.init hands in is symmetric only to
+  // rounding: unmirrored, that part grew to 1e-1 within 5 frames of a
+  // halfcheetah reset and the refresh fell back and diverged.
+  for (int i = 1; i < ND; ++i)
+    for (int j = 0; j < i; ++j) cur[i * ND + j] = cur[j * ND + i];
   matmul(mx, cur, t1, false);
   float tr_p0 = t1[0];
   for (int i = 1; i < ND; ++i) tr_p0 = tr_p0 + t1[i * ND + i];

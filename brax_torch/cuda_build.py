@@ -85,6 +85,14 @@ def build(*sources: Path) -> Dict[Path, Path]:
     return outs
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    return out.stdout.strip()
+
+
 class Library:
     """One compiled source, built and loaded at first use.
 

@@ -26,6 +26,17 @@ def wrap_for_training(env: base.Env, episode_length: int = 1000,
     return env
 
 
+def wrap_for_training_any(env, episode_length: int = 1000, action_repeat: int = 1):
+    """The training stack for a v1 or a v2 env: a `brax_torch.v2.envs.Env`
+    gets the v2 stack, anything else the v1 stack."""
+    from brax_torch.v2 import envs as v2_envs
+
+    if isinstance(env, v2_envs.Env):
+        return v2_envs.wrappers.wrap_for_training(env, episode_length=episode_length,
+                                                  action_repeat=action_repeat)
+    return wrap_for_training(env, episode_length=episode_length, action_repeat=action_repeat)
+
+
 class VmapWrapper(base.Wrapper):
     """The identity: the wrapped env already steps its whole batch."""
 
@@ -101,41 +112,51 @@ class EvalMetrics:
     episode_steps: Tensor
 
 
+def eval_reset(state):
+    """An env's reset state with eval metrics added: the reward among the
+    metrics, zero episode sums, every episode active.  Shared by the v1 and
+    v2 EvalWrappers, which the JAX package writes alike."""
+    metrics = dict(state.metrics, reward=state.reward)
+    eval_metrics = EvalMetrics(
+        episode_metrics={k: torch.zeros_like(v) for k, v in metrics.items()},
+        active_episodes=torch.ones_like(state.done),
+        episode_steps=torch.zeros_like(state.done),
+    )
+    return state.replace(metrics=metrics, info=dict(state.info, eval_metrics=eval_metrics))
+
+
+def eval_step(step, state, action):
+    """`step(state, action)` with the eval metrics carried: the step's
+    metrics are added to the sums of the episodes still active before it,
+    and an episode stops being active at its first done (so an auto-reset
+    env's later episodes add nothing)."""
+    state_metrics = state.info["eval_metrics"]
+    if not isinstance(state_metrics, EvalMetrics):
+        raise ValueError(f"Incorrect type for state_metrics: {type(state_metrics)}")
+    info = {k: v for k, v in state.info.items() if k != "eval_metrics"}
+    nstate = step(state.replace(info=info), action)
+    metrics = dict(nstate.metrics, reward=nstate.reward)
+    active = state_metrics.active_episodes
+    episode_steps = torch.where(active.bool(), nstate.info["steps"], state_metrics.episode_steps)
+
+    def accumulate(a, b):
+        return a + b * active.reshape(active.shape + (1,) * (b.dim() - active.dim()))
+
+    episode_metrics = {k: accumulate(state_metrics.episode_metrics[k], metrics[k])
+                       for k in state_metrics.episode_metrics}
+    eval_metrics = EvalMetrics(
+        episode_metrics=episode_metrics,
+        active_episodes=active * (1 - nstate.done),
+        episode_steps=episode_steps,
+    )
+    return nstate.replace(metrics=metrics, info=dict(nstate.info, eval_metrics=eval_metrics))
+
+
 class EvalWrapper(base.Wrapper):
     """Tracks episode-aggregated metrics for evaluation runs."""
 
     def reset(self, rng: torch.Generator) -> base.State:
-        state = self.env.reset(rng)
-        metrics = dict(state.metrics, reward=state.reward)
-        eval_metrics = EvalMetrics(
-            episode_metrics={k: torch.zeros_like(v) for k, v in metrics.items()},
-            active_episodes=torch.ones_like(state.done),
-            episode_steps=torch.zeros_like(state.done),
-        )
-        return state.replace(metrics=metrics, info=dict(state.info, eval_metrics=eval_metrics))
+        return eval_reset(self.env.reset(rng))
 
     def step(self, state: base.State, action: Tensor) -> base.State:
-        state_metrics = state.info["eval_metrics"]
-        if not isinstance(state_metrics, EvalMetrics):
-            raise ValueError(f"Incorrect type for state_metrics: {type(state_metrics)}")
-        info = {k: v for k, v in state.info.items() if k != "eval_metrics"}
-        nstate = self.env.step(state.replace(info=info), action)
-        metrics = dict(nstate.metrics, reward=nstate.reward)
-        active = state_metrics.active_episodes
-        episode_steps = torch.where(
-            active.bool(), nstate.info["steps"], state_metrics.episode_steps
-        )
-
-        def accumulate(a, b):
-            return a + b * active.reshape(active.shape + (1,) * (b.dim() - active.dim()))
-
-        episode_metrics = {
-            k: accumulate(state_metrics.episode_metrics[k], metrics[k])
-            for k in state_metrics.episode_metrics
-        }
-        eval_metrics = EvalMetrics(
-            episode_metrics=episode_metrics,
-            active_episodes=active * (1 - nstate.done),
-            episode_steps=episode_steps,
-        )
-        return nstate.replace(metrics=metrics, info=dict(nstate.info, eval_metrics=eval_metrics))
+        return eval_step(self.env.step, state, action)

@@ -1,8 +1,9 @@
 """Rollout generation and evaluation.
 
-Counterpart of `brax_tpu/training/acting.py`.  `generate_unroll` is a Python
-loop over time; its Transition stacks the steps along a leading time dim,
-[T, B, ...], as `lax.scan` does.  Rollouts run without autograd.
+Counterpart of `brax_tpu/training/acting.py`, for v1 and v2 envs alike.
+`generate_unroll` is a Python loop over time; its Transition stacks the
+steps along a leading time dim, [T, B, ...], as `lax.scan` does.  Rollouts
+run without autograd.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Callable, Sequence, Tuple
 import torch
 
 from brax_torch.envs import base, wrappers
+from brax_torch.v2 import envs as v2_envs
 from brax_torch.training.types import Metrics, Policy, PolicyParams, Transition, tree_stack
 
 
@@ -67,7 +69,8 @@ class Evaluator:
                              f"{num_eval_envs}")
         self._generator = generator
         self._eval_walltime = 0.0
-        self._eval_env = wrappers.EvalWrapper(eval_env)
+        self._eval_env = (v2_envs.wrappers.EvalWrapper(eval_env)
+                          if isinstance(eval_env, v2_envs.Env) else wrappers.EvalWrapper(eval_env))
         self._eval_policy_fn = eval_policy_fn
         self._unroll_length = episode_length // action_repeat
         self._steps_per_unroll = episode_length * num_eval_envs

@@ -7,11 +7,15 @@ eager torch calls, with the same data layout as the JAX trainer.
 The port's envs are built for a fixed batch, so `environment` (and
 `eval_env`) is an env name of `brax_torch.envs` or a factory
 `(batch_size, device) -> Env` of the unwrapped env: `train` builds the
-training env at `num_envs` and the eval env at `num_eval_envs`.
+training env at `num_envs` and the eval env at `num_eval_envs`.  A factory
+may return a v1 env or a bare v2 env (`brax_torch.v2.envs`), as the JAX
+trainer takes either: `envs.wrappers.wrap_for_training_any` picks the
+wrapper stack and `acting.Evaluator` the EvalWrapper.
 
 `use_fused_kernel=None` turns the fused MLP kernels on when `device` is
 CUDA, and the previous setting is restored on return.  Physics runs through
-the CUDA PBD kernel on CUDA tensors whatever this flag says.
+the CUDA PBD kernel (v1) or generalized-step kernel (v2) on CUDA tensors
+whatever this flag says.
 
 Each training step (ending in a device synchronise), its rollout and its
 SGD epochs, and each evaluation are `torch.profiler.record_function` ranges
@@ -110,12 +114,13 @@ def train(
         num_unrolls = batch_size * num_minibatches // num_envs
 
         make_env = _factory(environment)
-        env = wrappers.wrap_for_training(make_env(num_envs, device), episode_length=episode_length,
-                                         action_repeat=action_repeat)
+        env = wrappers.wrap_for_training_any(make_env(num_envs, device),
+                                             episode_length=episode_length,
+                                             action_repeat=action_repeat)
         eval_factory = make_env if eval_env is None else _factory(eval_env)
-        eval_env = wrappers.wrap_for_training(eval_factory(num_eval_envs, device),
-                                              episode_length=episode_length,
-                                              action_repeat=action_repeat)
+        eval_env = wrappers.wrap_for_training_any(eval_factory(num_eval_envs, device),
+                                                  episode_length=episode_length,
+                                                  action_repeat=action_repeat)
 
         normalize = lambda x, y: x
         if normalize_observations:

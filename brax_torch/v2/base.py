@@ -300,7 +300,7 @@ class System(_Base):
         return self.dt.device
 
     @classmethod
-    def from_numpy(cls, tree: Dict[str, Any], device="cpu") -> "System":
+    def from_numpy(cls, tree: Dict[str, Any], device="cuda") -> "System":
         """A System from nested dicts of numpy arrays (see the module doc)."""
         return _from_tree(tree, torch.device(device))
 

@@ -27,8 +27,9 @@ class Ant(env.PipelineEnv):
                  n_frames=5, batch_size=1, device="cuda", use_kernel=True):
         if use_contact_forces:
             raise NotImplementedError("use_contact_forces not implemented")
-        super().__init__(sys=mjcf.loads(assets.ant_xml()), backend=backend, n_frames=n_frames,
-                         batch_size=batch_size, device=device, use_kernel=use_kernel)
+        super().__init__(sys=mjcf.loads(assets.ant_xml(), device=device), backend=backend,
+                         n_frames=n_frames, batch_size=batch_size, device=device,
+                         use_kernel=use_kernel)
         self._ctrl_cost_weight = ctrl_cost_weight
         self._contact_cost_weight = contact_cost_weight
         self._healthy_reward = healthy_reward

@@ -1,8 +1,9 @@
 """Wrappers for the v2 envs, batch-first.
 
 Counterpart of `brax_tpu/v2/envs/wrappers.py`.  The port's envs step their
-whole batch already, so `VmapWrapper` is the identity.  Wrappers return new
-info dicts rather than updating the ones of the state they were given.
+whole batch already, so `VmapWrapper` is the identity.  Wrappers return
+new info dicts rather than updating the ones of the state they were given.
+`EvalMetrics` is the v1 class: the JAX package's two have the same fields.
 """
 
 from __future__ import annotations
@@ -12,8 +13,18 @@ from typing import Optional
 
 import torch
 
+from brax_torch.envs.wrappers import EvalMetrics, eval_reset, eval_step
 from brax_torch.v2.base import Tensor
 from brax_torch.v2.envs import env as v2_env
+
+
+def wrap_for_training(env: v2_env.Env, episode_length: int = 1000,
+                      action_repeat: int = 1) -> v2_env.Wrapper:
+    """Episode -> Vmap -> AutoReset, the standard trainer stack (v2 envs)."""
+    env = EpisodeWrapper(env, episode_length, action_repeat)
+    env = VmapWrapper(env)
+    env = AutoResetWrapper(env)
+    return env
 
 
 class VmapWrapper(v2_env.Wrapper):
@@ -83,3 +94,14 @@ class AutoResetWrapper(v2_env.Wrapper):
             pipeline_state=_where_tree(done, state.info["first_pipeline_state"],
                                        state.pipeline_state),
             obs=_where_tree(done, state.info["first_obs"], state.obs))
+
+
+class EvalWrapper(v2_env.Wrapper):
+    """Accumulates per-episode metrics until each episode finishes; the v1
+    EvalWrapper's rule (`brax_torch.envs.wrappers.eval_step`)."""
+
+    def reset(self, rng: torch.Generator) -> v2_env.State:
+        return eval_reset(self.env.reset(rng))
+
+    def step(self, state: v2_env.State, action: Tensor) -> v2_env.State:
+        return eval_step(self.env.step, state, action)

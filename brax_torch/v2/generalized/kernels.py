@@ -566,9 +566,14 @@ def _sum_all(m):
 
 
 def _inv_ns(mx, minv0, iters=NS_ITERS, tol=1e-12):
-    """Newton-Schulz M^-1 warm-started from minv0 (the r0n > 1 fallback
-    starts from 0.5 M / tr(M M)); M is symmetric by construction."""
+    """Newton-Schulz M^-1 warm-started from minv0's upper triangle, mirrored
+    (the r0n > 1 fallback starts from 0.5 M / tr(M M)); M is symmetric by
+    construction.  The JAX kernel starts from minv0 as it is: each
+    iteration doubles its antisymmetric part, which from pipeline.init's
+    rounding grows to ~1e-1 over 5 frames (ROADMAP.md, queue C)."""
     nd = mx.shape[1]
+    upper = torch.ones((nd, nd), dtype=torch.bool, device=mx.device).triu()
+    minv0 = torch.where(upper, minv0, minv0.transpose(1, 2))
     p0 = _mm(mx, minv0)
     tr_p0 = ordered.add([p0[:, i, i] for i in range(nd)])
     r0n = torch.sqrt(torch.clamp(_sum_all(p0 * p0) - 2.0 * tr_p0 + float(nd), min=0.0))

@@ -553,7 +553,7 @@ def _compute_invweight(sys: System) -> System:
                        dof=sys.dof.replace(invweight=torch.diagonal(mx_inv).clone()))
 
 
-def loads(xml: str, device="cpu") -> System:
+def loads(xml: str, device="cuda") -> System:
     """A System from an MJCF XML string, on `device`."""
     elem = ElementTree.fromstring(xml)
     _fuse_bodies(elem)

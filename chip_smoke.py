@@ -17,7 +17,8 @@
 5. times the kernel, the twin and env.step;
 6. holds the fused MLP kernels (brax_torch/csrc/fused_mlp.cu, forward and
    backward) against their plain versions at the PPO ant recipe's shapes,
-   in bf16 and f32 modes;
+   with v1 ant's 87-wide and v2 ant's 27-wide observation, in bf16 and f32
+   modes;
 7. drives PPO: ppo.train on ant with the published recipe
    (DEFAULT_PPO_PARAMS["ant"]) at full width for 3 training steps and one
    evaluation of 128 envs, and checks the exact launch counts of all three
@@ -36,16 +37,34 @@
    env.step calls, counts the plain version's operations for the bound,
    and times the kernel at 32, 64 and 128 threads per block at 4096 and
    16384 envs;
-12. prints one JSON line listing every kernel and, last,
+12. holds the generalized-step kernel of each other v2 env (inverted
+   pendulum, inverted double pendulum, reacher, halfcheetah, hopper,
+   walker2d) against its plain version at 4096 envs and the env's n_frames,
+   from a reset and, for the three with floor contacts, from a reset with
+   the torso lowered into contact, with the rule of step 9;
+13. drives each of those envs' main path: brax_torch.v2.envs.create(name,
+   batch_size=4096), reset, 50 env.step calls, one launch each, and times
+   the step, the kernel and its plain version beside the kernel's bound;
+14. drives PPO on the v2 ant: ppo.train with a factory of the bare v2 ant at
+   the ant recipe for 3 training steps and one evaluation of 128 envs, with
+   exact launch counts of gen_step and of the fused MLP kernels, then
+   times PPO env-steps/s with the fused kernels on and off in turns and
+   profiles one training step each way;
+15. reads the launch-overhead probe's counts, set to 0 before step 3, to
+   show that no env or PPO path ran its kernels; holds them
+   (brax_torch/csrc/probe.cu) against their plain versions, then drives the
+   probe (brax_torch.tools.probe_overhead.measure), which times every
+   launch both issued by the host and replayed from a CUDA graph;
+16. prints one JSON line listing every kernel and, last,
    {"ok": true, "device": {...}}.
 
-The three CUDA sources are built at the start, one nvcc each, in parallel.
+The CUDA sources are built at the start, one nvcc each, in parallel (the
+generalized step once per v2 scene).
 It fails, printing no result, without a CUDA device.  Imports nothing of
 JAX.
 """
 
 import json
-import subprocess
 import sys
 import time
 
@@ -57,6 +76,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from brax_torch import cuda_build, envs
 from brax_torch.braxlines.defaults import DEFAULT_PPO_PARAMS
 from brax_torch.sim import kernels
+from brax_torch.tools import probe_overhead as probe
 from brax_torch.training import fused_mlp
 from brax_torch.training.agents.ppo import networks as ppo_networks
 from brax_torch.training.agents.ppo import train as ppo
@@ -82,11 +102,14 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 
-# the PPO ant recipe's MLP chains (make_ppo_networks' defaults, 87 obs, 8 actions)
-CHAINS = {"value": [87] + [256] * 5 + [1], "policy": [87] + [32] * 4 + [16]}
-# (chain, rows) as the main path launches them: minibatch [T=5, 1024] losses
+# the PPO ant recipe's MLP chains (make_ppo_networks' defaults, 8 actions):
+# v1 ant's 87-wide observation, and v2 ant's 27-wide one ("_v2")
+CHAINS = {"value": [87] + [256] * 5 + [1], "policy": [87] + [32] * 4 + [16],
+          "value_v2": [27] + [256] * 5 + [1], "policy_v2": [27] + [32] * 4 + [16]}
+# (chain, rows) as the PPO paths launch them: minibatch [T=5, 1024] losses
 # (5120 rows), the rollout's policy at 2048 envs, the bootstrap value at 1024
-CHAIN_SHAPES = [("value", 5120), ("policy", 5120), ("policy", 2048), ("value", 1024)]
+CHAIN_SHAPES = [(c + v, r) for v in ("", "_v2")
+                for c, r in (("value", 5120), ("policy", 5120), ("policy", 2048), ("value", 1024))]
 # f32 mode: tests/test_fused_mlp.py's tolerances (|err| <= atol + rtol |plain|)
 F32_TOL = {"fwd": (2e-5, 2e-5), "bwd": (2e-4, 2e-5)}
 # bf16 mode: max |kernel - plain| <= BF16_REL * max |plain|, per output.  The
@@ -103,21 +126,21 @@ GEN_MAX_OUTLIERS = 8
 GEN_FRAMES = 5  # ant's n_frames (brax_tpu/v2/envs/ant.py:32)
 # the reference's static count of one gen ant env step (bench.py:291)
 GEN_REFERENCE_FLOPS = 687_989
-# threads per block and batch sizes of the gen_step block-size sweep
+# threads per block and batch sizes of the gen_step block-size sweep (one pass)
 GEN_BLOCKS = (32, 64, 128)
 GEN_SWEEP_ENVS = (N_ENVS, 4 * N_ENVS)
+# the v2 envs beside ant, and those of them with floor contacts
+V2_ENVS = ("inverted_pendulum", "inverted_double_pendulum", "reacher", "halfcheetah", "hopper",
+           "walker2d")
+V2_CONTACT_ENVS = ("halfcheetah", "hopper", "walker2d")
+V2_ENV_STEPS = 50
+# the contact-rich start: the torso lowered until its lowest contact point
+# touches the floor, and by up to this much further
+V2_LOWER = 0.1
 PPO_STEPS = 3
 PPO_EVAL_ENVS = 128
 PROFILE_EPISODE = 10
 DEVICE = torch.device("cuda")
-
-
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip()
 
 
 def cuda_ms(fn, reps, warmup):
@@ -254,8 +277,10 @@ def max_errors(sys_, qp, act, gen):
 
 
 def gen_per_env_errors(a, b):
+    """{output: (N,) max abs error per env}, over the outputs the scene has
+    (no contact outputs without contacts)."""
     n = a["q"].shape[0]
-    return {k: (a[k] - b[k]).abs().reshape(n, -1).amax(dim=1) for k in GEN_TOLERANCE}
+    return {k: (a[k] - b[k]).abs().reshape(n, -1).amax(dim=1) for k in GEN_TOLERANCE if k in a}
 
 
 def gen_rounding_decided(sys_, ins, n_frames, idx, kernel_out, gen):
@@ -277,7 +302,7 @@ def gen_rounding_decided(sys_, ins, n_frames, idx, kernel_out, gen):
                                      act[idx].repeat_interleave(k, dim=0), n_frames)
     want = {f: v[idx].repeat_interleave(k, dim=0) for f, v in kernel_out.items()}
     errs = gen_per_env_errors(out, want)
-    ok = torch.stack([errs[f] <= GEN_TOLERANCE[f] for f in GEN_TOLERANCE]).all(dim=0)
+    ok = torch.stack([e <= GEN_TOLERANCE[f] for f, e in errs.items()]).all(dim=0)
     return ok.reshape(len(idx), k).any(dim=1)
 
 
@@ -320,6 +345,97 @@ def gen_max_errors(sys_, ins, n_frames, gen, label):
             raise AssertionError(f"gen_step disagrees with its plain version in envs "
                                  f"{idx[~decided].tolist()}, beyond rounding: {errs}")
     return errs, inside_errs, outliers
+
+
+def gen_bound(sys_, ins, n_frames):
+    """(bound_ms, bound_by, ops, bytes) of one gen_step launch on `ins`: the
+    plain version's operations on these inputs (OpCount) at the fp32 rate,
+    against its inputs and outputs (one float each per env) and the scene
+    table at the HBM rate."""
+    n = ins[0].shape[0]
+    counter = OpCount()
+    with counter:
+        gen_kernels.gen_step_plain(sys_, *ins, n_frames)
+    n_bytes = (4 * n * (sum(x[0].numel() for x in ins) + sum(
+        int(np.prod(s)) for s in gen_kernels.out_shapes(sys_).values()))
+        + gen_kernels.pack_tables(sys_).nbytes)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = counter.ops / FP32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", \
+        counter.ops, n_bytes
+
+
+def v2_parity(name, env, gen):
+    """gen_step against its plain version for a v2 env at its n_frames, from
+    a reset and, with floor contacts, from a reset with the torso lowered
+    into contact.  Returns {label: gen_max_errors(...)} and the share of
+    envs in contact at the lowered start (None without contacts)."""
+    bare = env.unwrapped
+    n, n_frames = bare.batch_size, bare._n_frames
+    act = lambda: torch.rand((n, bare.action_size), generator=gen, device=DEVICE) * 2 - 1
+    ps = env.reset(gen).pipeline_state
+    label = f"{name} {n_frames} frame(s), reset"
+    checks = {label: gen_max_errors(bare.sys, (ps.q, ps.qd, ps.mass_mx_inv, act()), n_frames,
+                                    gen, label)}
+    if name not in V2_CONTACT_ENVS:
+        return checks, None
+    # rootz is q[1]: lower each env until its lowest contact point touches
+    # the floor, then by up to V2_LOWER more
+    clearance = -ps.contact.penetration.amax(dim=1)
+    q = ps.q.clone()
+    q[:, 1] -= clearance + torch.rand(n, generator=gen, device=DEVICE) * V2_LOWER
+    low = bare.pipeline_init(q, ps.qd)
+    share = float((low.contact.penetration > 0).any(dim=1).float().mean())
+    print(f"gen_step parity state: {name}, {n} envs from reset, torso lowered, {share:.3f} "
+          f"in contact")
+    label = f"{name} {n_frames} frame(s), lowered"
+    checks[label] = gen_max_errors(bare.sys, (low.q, low.qd, low.mass_mx_inv, act()), n_frames,
+                                   gen, label)
+    return checks, share
+
+
+def v2_main_path(name, tag):
+    """V2_ENV_STEPS env.step calls of create(name, batch_size=N_ENVS) with
+    exactly one gen_step launch each; then the kernel, its plain version
+    and its bound on the last state.  Returns the env's record."""
+    env = v2_envs.create(name, episode_length=1000, batch_size=N_ENVS)
+    bare = env.unwrapped
+    state = env.reset(torch.Generator(device=DEVICE).manual_seed(1))
+    act_gen = torch.Generator(device=DEVICE).manual_seed(2)
+    act = lambda: torch.rand((N_ENVS, bare.action_size), generator=act_gen, device=DEVICE) * 2 - 1
+    warm = 10
+    gen_kernels.gen_step_soa.launches = 0
+    for i in range(V2_ENV_STEPS):
+        if i == warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state = env.step(state, act())
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (V2_ENV_STEPS - warm)
+    launches = gen_kernels.gen_step_soa.launches
+    if launches != V2_ENV_STEPS:
+        raise AssertionError(f"{V2_ENV_STEPS} {name} env steps made {launches} gen_step launches")
+    if not bool(torch.isfinite(state.obs).all()):
+        raise AssertionError(f"non-finite {name} observations")
+    done = float(state.done.mean())
+    print(f"main path v2 {name}: {V2_ENV_STEPS} env.step calls, {launches} gen_step launches, "
+          f"obs {tuple(state.obs.shape)} finite, done fraction {done:.4f}")
+    ps = state.pipeline_state
+    ins = (ps.q, ps.qd, ps.mass_mx_inv, act())
+    soa = tuple(x.reshape(N_ENVS, -1).t().contiguous() for x in ins)
+    n_frames = bare._n_frames
+    ms = cuda_ms(lambda: gen_kernels.gen_step_soa(bare.sys, *soa, n_frames), 50, 5)
+    plain_ms = cuda_ms(lambda: gen_kernels.gen_step_plain(bare.sys, *ins, n_frames), 1, 1)
+    bound_ms, bound_by, ops, n_bytes = gen_bound(bare.sys, ins, n_frames)
+    print(f"timing {tag}: v2 {name}: env.step {step_s * 1e3:.4f} ms/step, "
+          f"{N_ENVS / step_s:.1f} env-steps/s (host clock, {V2_ENV_STEPS - warm} steps); gen_step "
+          f"{ms:.4f} ms/launch ({n_frames} frames), plain {plain_ms:.3f} ms; bound "
+          f"{bound_ms:.5f} ms by {bound_by} ({ops} ops, {n_bytes} bytes)")
+    return {"n_frames": n_frames, "launches": launches,
+            "launches_per_env_step": launches / V2_ENV_STEPS,
+            "done_fraction": done, "env_step_ms": step_s * 1e3,
+            "env_steps_per_s": N_ENVS / step_s, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops, "bytes": n_bytes}
 
 
 # ---------------------------------------------------------------------------
@@ -486,15 +602,44 @@ class InitRecorder:
         return wrapped
 
 
-def run_ppo(fused, steps, **kw):
+def v2_ant(batch_size, device):
+    """The bare v2 ant: the factory PPO trains on v2."""
+    return v2_envs.get_environment("ant", batch_size=batch_size, device=device)
+
+
+def run_ppo(fused, steps, environment="ant", **kw):
     p = recipe()
     p.update(num_timesteps=steps * env_steps_per_training_step(p), num_evals=1)
     p.update(kw)
-    return ppo.train("ant", num_eval_envs=PPO_EVAL_ENVS, use_fused_kernel=fused, seed=0,
+    return ppo.train(environment, num_eval_envs=PPO_EVAL_ENVS, use_fused_kernel=fused, seed=0,
                      device=DEVICE, **p)
 
 
-def profile_training_step(fused):
+def check_ppo_run(label, metrics, recorder, policy_params, launches, want):
+    """Raises unless the launch counts are `want`, the losses and the eval
+    reward finite, every parameter moved and the returned policy params
+    those trained.  Returns the smallest max change of a parameter."""
+    if launches != want:
+        raise AssertionError(f"{label} launches {launches}, expected {want}")
+    for key in ("training/total_loss", "training/policy_loss", "training/v_loss",
+                "training/entropy_loss", "eval/episode_reward"):
+        if not np.isfinite(metrics[key]):
+            raise AssertionError(f"{label} {key} = {metrics[key]}")
+    moved = {}
+    for side in ("policy", "value"):
+        now = dict(getattr(recorder.networks, f"{side}_network").mlp.named_parameters())
+        for k, before in recorder.initial[side].items():
+            moved[f"{side}.{k}"] = float((now[k].detach() - before).abs().max())
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"{label}: parameters that did not change: "
+                             f"{[k for k, v in moved.items() if not v > 0]}")
+    if any(not torch.equal(policy_params[k], v.detach()) for k, v in
+           recorder.networks.policy_network.mlp.named_parameters()):
+        raise AssertionError(f"{label}: train returned other policy params than it trained")
+    return min(moved.values())
+
+
+def profile_training_step(fused, environment="ant"):
     """Device time, device-op count and top kernels of the second of two
     training steps (the host range "ppo/training_step", which ends in a
     synchronise), and the host time of its rollout and SGD ranges.
@@ -505,7 +650,7 @@ def profile_training_step(fused):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run_ppo(fused, steps=2, episode_length=PROFILE_EPISODE)
+        run_ppo(fused, steps=2, environment=environment, episode_length=PROFILE_EPISODE)
     events = prof.events()
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     ranges = lambda name: sorted((e for e in events if e.name == name and e.device_type == cpu),
@@ -539,13 +684,32 @@ def profile_training_step(fused):
     }
 
 
+def print_profile(tag, label, mode, prof):
+    """Prints a profile_training_step result; returns it."""
+    if not prof["device_us"]:
+        print(f"profile {tag}: {label}fused_mlp {mode}: no device time recorded (not measured)")
+        return prof
+    print(f"profile {tag}: {label}fused_mlp {mode}: one training step "
+          f"{prof['step_us'] / 1e3:.1f} ms (host), of it rollout "
+          f"{prof['host_us']['rollout'] / 1e3:.1f} ms and sgd {prof['host_us']['sgd'] / 1e3:.1f} "
+          f"ms; device busy {prof['device_us'] / 1e3:.1f} ms "
+          f"({prof['device_us'] / prof['step_us']:.3f}), {prof['device_ops']} device ops "
+          f"(kernels, copies)")
+    for kname, (n, us) in prof["top"]:
+        print(f"  {us / 1e3:9.3f} ms/step  {n:6d}/step  {kname[:90]}")
+    print(f"profile {tag}: {label}fused_mlp {mode}: host self time by op in that step:")
+    for kname, (n, us) in prof["host_top"]:
+        print(f"  {us / 1e3:9.3f} ms/step  {n:6d}/step  {kname[:90]}")
+    return prof
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
     device = torch.device("cuda")
     start = time.perf_counter()
     phase = lambda label: print(f"[{time.perf_counter() - start:.1f} s] {label}", flush=True)
-    name_limit = card()
+    name_limit = cuda_build.card()
     print(name_limit)
     tag = f"[{name_limit}]"
 
@@ -553,12 +717,20 @@ def main():
     t0 = time.perf_counter()
     gen_env = v2_envs.create("ant", episode_length=1000, batch_size=N_ENVS)
     gen_sys = gen_env.sys
-    built = cuda_build.build(kernels.SOURCE, fused_mlp.SOURCE, gen_kernels.kernel_source(gen_sys))
+    scenes = [gen_sys] + [v2_envs.get_environment(name).sys for name in V2_ENVS]
+    built = cuda_build.build(kernels.SOURCE, fused_mlp.SOURCE, probe.SOURCE,
+                             *(gen_kernels.kernel_source(s) for s in scenes))
     print(f"build: {', '.join(p.name for p in built.values())} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a, in parallel)")
     print(kernels.ptxas_report().strip())
     print(fused_mlp.ptxas_report().strip())
-    print(gen_kernels.ptxas_report(gen_sys).strip())
+    print(probe.ptxas_report().strip())
+    for scene in scenes:
+        print(gen_kernels.ptxas_report(scene).strip())
+
+    # the probe runs on no env or PPO path: its counts, set to 0 here, are
+    # read before its own phase
+    probe.copy_plus_one.launches = probe.dot_chain.launches = 0
 
     # -- kernel against its plain twin at 4096 envs, in contact ---------------
     phase("pbd_step parity")
@@ -672,30 +844,14 @@ def main():
     ppo_launches = {"fused_mlp_fwd": fused_mlp.chain_fwd.launches,
                     "fused_mlp_bwd": fused_mlp.chain_bwd.launches,
                     "pbd_step": kernels.pbd_step_soa.launches}
-    if ppo_launches != want:
-        raise AssertionError(f"PPO launches {ppo_launches}, expected {want}")
-    for key in ("training/total_loss", "training/policy_loss", "training/v_loss",
-                "training/entropy_loss", "eval/episode_reward"):
-        if not np.isfinite(ppo_metrics[key]):
-            raise AssertionError(f"{key} = {ppo_metrics[key]}")
-    moved = {}
-    for side in ("policy", "value"):
-        now = dict(getattr(recorder.networks, f"{side}_network").mlp.named_parameters())
-        for k, before in recorder.initial[side].items():
-            moved[f"{side}.{k}"] = float((now[k].detach() - before).abs().max())
-    if not all(v > 0 for v in moved.values()):
-        raise AssertionError(f"parameters that did not change: "
-                             f"{[k for k, v in moved.items() if not v > 0]}")
-    if any(not torch.equal(policy_params[k], v.detach()) for k, v in
-           recorder.networks.policy_network.mlp.named_parameters()):
-        raise AssertionError("train returned other policy params than it trained")
+    moved = check_ppo_run("PPO", ppo_metrics, recorder, policy_params, ppo_launches, want)
     print(f"main path PPO: {PPO_STEPS} training steps of ant "
           f"(num_envs {p['num_envs']}, batch {p['batch_size']} x {p['num_minibatches']} "
           f"minibatches, unroll {p['unroll_length']}, {p['num_updates_per_batch']} updates) + "
           f"one eval of {PPO_EVAL_ENVS} envs in {ppo_s:.1f} s; launches {ppo_launches} "
           f"(as expected); total_loss {ppo_metrics['training/total_loss']:.5g}, "
           f"eval/episode_reward {ppo_metrics['eval/episode_reward']:.5g}; every parameter "
-          f"moved (smallest max change {min(moved.values()):.3e})")
+          f"moved (smallest max change {moved:.3e})")
 
     # -- fused kernel timings ------------------------------------------------------
     phase("fused_mlp timings")
@@ -712,16 +868,20 @@ def main():
                       f"({b[2]:.4g} ops, {b[3]} bytes)")
     # device ms per training step in each kernel, bf16 (the main path's mode)
     n_rollout, n_sgd, _ = launch_plan(p)
-    per_step = {
-        "fwd": n_rollout * times["policy", 2048, "bf16"]["fwd"] + n_sgd * sum(
-            times[c, r, "bf16"]["fwd"] for c, r in (("policy", 5120), ("value", 5120),
-                                                   ("value", 1024))),
-        "bwd": n_sgd * sum(times[c, 5120, "bf16"]["bwd"] for c in ("policy", "value")),
-    }
+    def per_training_step(v):
+        return {
+            "fwd": n_rollout * times["policy" + v, 2048, "bf16"]["fwd"] + n_sgd * sum(
+                times[c + v, r, "bf16"]["fwd"] for c, r in (("policy", 5120), ("value", 5120),
+                                                           ("value", 1024))),
+            "bwd": n_sgd * sum(times[c + v, 5120, "bf16"]["bwd"] for c in ("policy", "value")),
+        }
+
+    per_step, per_step_v2 = per_training_step(""), per_training_step("_v2")
     per_step_launches = {"fwd": n_rollout + 3 * n_sgd, "bwd": 2 * n_sgd}
-    print(f"timing {tag}: per training step, fused_mlp_fwd {per_step['fwd']:.3f} ms "
-          f"({per_step_launches['fwd']} launches), fused_mlp_bwd {per_step['bwd']:.3f} ms "
-          f"({per_step_launches['bwd']} launches)")
+    for label, ms in (("v1 ant", per_step), ("v2 ant", per_step_v2)):
+        print(f"timing {tag}: per training step of PPO on {label}, fused_mlp_fwd "
+              f"{ms['fwd']:.3f} ms ({per_step_launches['fwd']} launches), fused_mlp_bwd "
+              f"{ms['bwd']:.3f} ms ({per_step_launches['bwd']} launches)")
 
     # -- PPO env-steps/s, fused kernels on and off, in turns ---------------------
     phase("PPO timings and profiles")
@@ -731,22 +891,8 @@ def main():
             run_ppo(fused, PPO_STEPS)[2]["training/sps_after_first"])
     print(f"timing {tag}: PPO training env-steps/s over steps 2-{PPO_STEPS} (host clock): "
           f"fused_mlp on {sps['on']}, off {sps['off']}")
-    profiles = {}
-    for mode, fused in (("on", True), ("off", False)):
-        profiles[mode] = prof = profile_training_step(fused)
-        if not prof["device_us"]:
-            print(f"profile {tag}: fused_mlp {mode}: no device time recorded (not measured)")
-            continue
-        print(f"profile {tag}: fused_mlp {mode}: one training step {prof['step_us'] / 1e3:.1f} ms "
-              f"(host), of it rollout {prof['host_us']['rollout'] / 1e3:.1f} ms and sgd "
-              f"{prof['host_us']['sgd'] / 1e3:.1f} ms; device busy "
-              f"{prof['device_us'] / 1e3:.1f} ms ({prof['device_us'] / prof['step_us']:.3f}), "
-              f"{prof['device_ops']} device ops (kernels, copies)")
-        for kname, (n, us) in prof["top"]:
-            print(f"  {us / 1e3:9.3f} ms/step  {n:6d}/step  {kname[:90]}")
-        print(f"profile {tag}: fused_mlp {mode}: host self time by op in that step:")
-        for kname, (n, us) in prof["host_top"]:
-            print(f"  {us / 1e3:9.3f} ms/step  {n:6d}/step  {kname[:90]}")
+    profiles = {mode: print_profile(tag, "", mode, profile_training_step(fused))
+                for mode, fused in (("on", True), ("off", False))}
 
     def fused_entry(kind, replaces, function):
         main = ("value", 5120, "bf16")
@@ -758,13 +904,17 @@ def main():
             "replaces": replaces,
             "replaces_function": function,
             "launches": ppo_launches[f"fused_mlp_{kind}"],
+            "launches_by_path": {"PPO ant": ppo_launches[f"fused_mlp_{kind}"],
+                                 "PPO v2 ant": v2_launches[f"fused_mlp_{kind}"],
+                                 "probe": probe_launches.get(f"fused_mlp_{kind}", 0)},
             "launches_per_training_step": per_step_launches[kind],
             "max_abs_err": max(c[kind]["max_abs_err"] for k, c in checks.items()
                                if k[2] == "bf16"),
             "max_abs_err_f32": max(c[kind]["max_abs_err"] for k, c in checks.items()
                                    if k[2] == "f32"),
             "tolerance": {"bf16_rel_to_max": BF16_REL, "f32_rtol_atol": F32_TOL[kind]},
-            "shape": "value chain 87-256x5-1 at 5120 rows, bf16",
+            "shape": "value chain 87-256x5-1 at 5120 rows, bf16; by_shape has every "
+                     "chain of both PPO paths (87-wide v1 ant, 27-wide v2 ant)",
             "ms": times[main][kind],
             "plain_ms": times[main]["plain_" + kind],
             "bound_ms": b[0],
@@ -772,6 +922,7 @@ def main():
             "library_ms": None,
             "cublas_chain_ms": times[main]["cublas_" + kind],
             "ms_per_training_step": per_step[kind],
+            "ms_per_training_step_v2": per_step_v2[kind],
             "by_shape": [
                 {"chain": c, "rows": r, "mode": m, "ms": times[c, r, m][kind],
                  "plain_ms": times[c, r, m]["plain_" + kind],
@@ -839,26 +990,18 @@ def main():
     gen_soa = tuple(soa(x) for x in gen_ins)
     gen_ms = cuda_ms(lambda: gen_kernels.gen_step_soa(gen_sys, *gen_soa, GEN_FRAMES), 100, 10)
     gen_plain_ms = cuda_ms(lambda: gen_kernels.gen_step_plain(gen_sys, *gen_ins, GEN_FRAMES), 3, 1)
-    counter = OpCount()
-    with counter:
-        gen_kernels.gen_step_plain(gen_sys, *gen_ins, GEN_FRAMES)
-    gen_bytes = (4 * N_ENVS * (sum(x.shape[0] for x in gen_soa) + sum(
-        int(np.prod(s)) for s in gen_kernels.out_shapes(gen_sys).values()))
-        + gen_kernels.pack_tables(gen_sys).nbytes)
-    gen_bytes_ms = gen_bytes / HBM_BYTES_PER_S * 1e3
-    gen_ops_ms = counter.ops / FP32_OPS_PER_S * 1e3
-    gen_bound_ms = max(gen_bytes_ms, gen_ops_ms)
-    gen_bound_by = "bytes" if gen_bytes_ms >= gen_ops_ms else "operations"
+    gen_bound_ms, gen_bound_by, gen_ops, gen_bytes = gen_bound(gen_sys, gen_ins, GEN_FRAMES)
     ref_ms = GEN_REFERENCE_FLOPS * N_ENVS / FP32_OPS_PER_S * 1e3
     print(f"timing {tag}: gen_step kernel {gen_ms:.4f} ms/launch ({GEN_FRAMES} frames, "
           f"{N_ENVS} envs, CUDA events, 100 launches)")
     print(f"timing {tag}: gen_step plain version {gen_plain_ms:.3f} ms/step")
     print(f"timing {tag}: v2 env.step {gen_step_s * 1e3:.4f} ms/step, "
           f"{N_ENVS / gen_step_s:.1f} env-steps/s (host clock, {MAIN_STEPS - 20} steps)")
-    print(f"bound {tag}: gen_step {gen_bytes} bytes -> {gen_bytes_ms:.5f} ms at 3.35 TB/s; "
-          f"{counter.ops} fp32 ops (the plain version's, counted) -> {gen_ops_ms:.5f} ms at "
-          f"67 TFLOP/s; the reference's static count, {GEN_REFERENCE_FLOPS} flops per env "
-          f"step (bench.py:291), would be {ref_ms:.5f} ms")
+    print(f"bound {tag}: gen_step {gen_bytes} bytes -> "
+          f"{gen_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms at 3.35 TB/s; {gen_ops} fp32 ops (the "
+          f"plain version's, counted) -> {gen_ops / FP32_OPS_PER_S * 1e3:.5f} ms at 67 TFLOP/s; "
+          f"the reference's static count, {GEN_REFERENCE_FLOPS} flops per env step "
+          f"(bench.py:291), would be {ref_ms:.5f} ms")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(20):
             act = torch.rand((N_ENVS, 8), generator=act_gen, device=device) * 2 - 1
@@ -876,24 +1019,137 @@ def main():
     else:
         print("profile: v2 env.step: no device time recorded (not measured)")
 
-    # -- gen_step block sizes: each block size twice, in turns ----------------------
+    # -- gen_step block sizes: one pass --------------------------------------------
     phase("gen_step block sizes")
     sweep = {}
     for n_sweep in GEN_SWEEP_ENVS:
         sweep_ins = tuple(x.repeat(1, n_sweep // N_ENVS).contiguous() for x in gen_soa)
-        sweep[n_sweep] = {b: [] for b in GEN_BLOCKS}
-        for block in GEN_BLOCKS + GEN_BLOCKS[::-1]:
-            ms = cuda_ms(lambda: gen_kernels.gen_step_soa(gen_sys, *sweep_ins, GEN_FRAMES,
-                                                          block=block), 30, 3)
-            sweep[n_sweep][block].append(ms)
-        print(f"timing {tag}: gen_step at {n_sweep} envs by threads per block (ms per launch, "
-              f"two turns each): {sweep[n_sweep]}")
+        sweep[n_sweep] = {block: cuda_ms(lambda: gen_kernels.gen_step_soa(
+            gen_sys, *sweep_ins, GEN_FRAMES, block=block), 30, 3) for block in GEN_BLOCKS}
+        print(f"timing {tag}: gen_step at {n_sweep} envs by threads per block (ms per "
+              f"launch): {sweep[n_sweep]}")
+
+    # -- the other v2 envs: parity at 4096 envs, then each main path ------------------
+    phase("v2 envs: gen_step parity")
+    v2_checks, v2_contact = {}, {}
+    for name in V2_ENVS:
+        env = v2_envs.create(name, episode_length=1000, batch_size=N_ENVS)
+        v2_checks[name], v2_contact[name] = v2_parity(
+            name, env, torch.Generator(device=device).manual_seed(0))
+    phase("main paths: v2 envs")
+    v2_records = {name: v2_main_path(name, tag) for name in V2_ENVS}
+
+    # -- main path: PPO on the v2 ant, the ant recipe ----------------------------------
+    phase("main path: PPO on v2 ant")
+    want_v2 = dict(zip(("fused_mlp_fwd", "fused_mlp_bwd", "gen_step"),
+                       expected_launches(p, PPO_STEPS)))
+    recorder = InitRecorder()
+    gen_kernels.gen_step_soa.launches = 0
+    fused_mlp.chain_fwd.launches = fused_mlp.chain_bwd.launches = 0
+    t0 = time.perf_counter()
+    _, (_, policy_params), v2_metrics = run_ppo(True, PPO_STEPS, environment=v2_ant,
+                                                network_factory=recorder.factory)
+    torch.cuda.synchronize()
+    v2_ppo_s = time.perf_counter() - t0
+    v2_launches = {"fused_mlp_fwd": fused_mlp.chain_fwd.launches,
+                   "fused_mlp_bwd": fused_mlp.chain_bwd.launches,
+                   "gen_step": gen_kernels.gen_step_soa.launches}
+    moved = check_ppo_run("PPO v2", v2_metrics, recorder, policy_params, v2_launches, want_v2)
+    obs_width = recorder.initial["policy"]["hidden_0.kernel"].shape[0]
+    if obs_width != 27:
+        raise AssertionError(f"the v2 ant policy takes {obs_width} inputs, not 27")
+    print(f"main path PPO v2: {PPO_STEPS} training steps of the v2 ant at the ant recipe + one "
+          f"eval of {PPO_EVAL_ENVS} envs in {v2_ppo_s:.1f} s; launches {v2_launches} (as "
+          f"expected); obs width {obs_width}; total_loss "
+          f"{v2_metrics['training/total_loss']:.5g}, eval/episode_reward "
+          f"{v2_metrics['eval/episode_reward']:.5g}; every parameter moved (smallest max change "
+          f"{moved:.3e})")
+    phase("PPO v2 timings")
+    # the kernel at the recipe's batch, on the ant parity inputs' first envs
+    v2_kernel_ms = cuda_ms(lambda: gen_kernels.gen_step_soa(
+        gen_sys, *(x[:, :p["num_envs"]].contiguous() for x in gen_soa), GEN_FRAMES), 50, 5)
+    print(f"timing {tag}: gen_step {v2_kernel_ms:.4f} ms/launch at the recipe's {p['num_envs']} "
+          f"envs; {want_v2['gen_step']} launches in the PPO v2 run")
+    v2_sps = {"on": [v2_metrics["training/sps_after_first"]], "off": []}
+    for fused in (False, True, False):
+        v2_sps["on" if fused else "off"].append(
+            run_ppo(fused, PPO_STEPS, environment=v2_ant)[2]["training/sps_after_first"])
+    print(f"timing {tag}: PPO on v2 ant, training env-steps/s over steps 2-{PPO_STEPS} (host "
+          f"clock): fused_mlp on {v2_sps['on']}, off {v2_sps['off']}")
+    v2_profiles = {mode: print_profile(tag, "PPO v2 ant, ", mode,
+                                       profile_training_step(fused, environment=v2_ant))
+                   for mode, fused in (("on", True), ("off", False))}
+
+    # -- the launch-overhead probe ------------------------------------------------------
+    phase("probe parity")
+    probe_on_paths = {"probe_copy_plus_one": probe.copy_plus_one.launches,
+                      "probe_dot_chain": probe.dot_chain.launches}
+    print(f"probe launches on the env and PPO paths (counts set to 0 before the first): "
+          f"{probe_on_paths}")
+    chain_errs = {}
+    for rows in probe.CHAIN_ROWS:
+        gen = torch.Generator(device=device).manual_seed(rows)
+        x = torch.randn((rows, probe.WIDTH), generator=gen, device=device)
+        w = torch.randn((probe.WIDTH, probe.WIDTH), generator=gen, device=device) * 0.05
+        for k in probe.CHAIN_KS:
+            got, want_chain = probe.dot_chain(x, w, k), probe.dot_chain_plain(x, w, k)
+            err, top = float((got - want_chain).abs().max()), float(want_chain.abs().max())
+            print(f"parity probe dot_chain [{rows}, 256] k={k}: max|kernel - plain| = "
+                  f"{err:.3e}, {err / (BF16_REL * top):.3f} of the tolerance")
+            if err > BF16_REL * top:
+                raise AssertionError(f"dot_chain [{rows}, 256] k={k} outside tolerance")
+            chain_errs[rows, k] = err
+    tile = torch.randn(probe.TILE, device=device)
+    copy_errs = {}
+    for blocks in (1,) + probe.GRIDS:
+        got = probe.copy_plus_one(tile, blocks)
+        copy_errs[blocks] = float((got - probe.copy_plus_one_plain(tile)).abs().max())
+    print(f"parity probe copy_plus_one: max|kernel - plain| by blocks {copy_errs} (must be 0)")
+    if any(copy_errs.values()):
+        raise AssertionError(f"copy_plus_one is not x + 1: {copy_errs}")
+    phase("main path: probe")
+    probe.copy_plus_one.launches = probe.dot_chain.launches = fused_mlp.chain_fwd.launches = 0
+    probe.copy_plus_one.replayed = probe.dot_chain.replayed = 0
+    probe_times = probe.measure()
+    probe_launches = {"probe_copy_plus_one": probe.copy_plus_one.launches,
+                      "probe_dot_chain": probe.dot_chain.launches,
+                      "fused_mlp_fwd": fused_mlp.chain_fwd.launches}
+    probe_replayed = {"probe_copy_plus_one": probe.copy_plus_one.replayed,
+                      "probe_dot_chain": probe.dot_chain.replayed}
+    if not all(probe_launches.values()):
+        raise AssertionError(f"the probe did not launch every kernel: {probe_launches}")
+    probe_result = probe.result(probe_times)
+    print(f"probe {tag}: launches through the wrappers (host-issued and captured) "
+          f"{probe_launches}; replayed from graphs {probe_replayed}; "
+          f"RESULT {json.dumps(probe_result)}")
+    x_chain, w_chain = probe.inputs(probe.CHAIN_ROWS[-1])
+    k_main = probe.CHAIN_KS[-1]
+    chain_plain_ms = cuda_ms(lambda: probe.dot_chain_plain(x_chain, w_chain, k_main), 20, 2)
+    copy_plain_ms = cuda_ms(lambda: probe.copy_plus_one_plain(tile), 200, 20)
+    copy_bytes = 2 * tile.numel() * 4
+    probe_bound = {}
+    for rows in probe.CHAIN_ROWS:
+        for k in probe.CHAIN_KS:
+            ops_ms = 2 * rows * probe.WIDTH ** 2 * k / BF16_OPS_PER_S * 1e3
+            bytes_ms = 4 * (2 * rows * probe.WIDTH + probe.WIDTH ** 2) / HBM_BYTES_PER_S * 1e3
+            probe_bound[rows, k] = (max(ops_ms, bytes_ms),
+                                    "bytes" if bytes_ms >= ops_ms else "operations")
+    print(f"timing {tag}: probe plain versions: dot_chain [5120, 256] k={k_main} "
+          f"{chain_plain_ms:.4f} ms, x + 1 {copy_plain_ms:.4f} ms; bounds: copy "
+          f"{copy_bytes / HBM_BYTES_PER_S * 1e3:.2e} ms by bytes, chains {probe_bound}")
 
     print(json.dumps({"ppo": {
         "env_steps_per_s_fused_on": sps["on"], "env_steps_per_s_fused_off": sps["off"],
         "eval_episode_reward": ppo_metrics["eval/episode_reward"],
         "profile": {m: {k: v for k, v in prof.items() if k not in ("top", "host_top")}
                     for m, prof in profiles.items()},
+        "v2_ant": {"env_steps_per_s_fused_on": v2_sps["on"],
+                   "env_steps_per_s_fused_off": v2_sps["off"],
+                   "eval_episode_reward": v2_metrics["eval/episode_reward"],
+                   "launches": v2_launches, "seconds": v2_ppo_s,
+                   "gen_step_ms_at_num_envs": v2_kernel_ms,
+                   "profile": {m: {k: v for k, v in prof.items() if k not in ("top", "host_top")}
+                               for m, prof in v2_profiles.items()}},
         "card": name_limit}}))
     print(json.dumps({"kernels": [{
         "name": "pbd_step",
@@ -943,13 +1199,79 @@ def main():
             "bound_ms": gen_bound_ms,
             "bound_by": gen_bound_by,
             "library_ms": None,
-            "ops": counter.ops,
+            "ops": gen_ops,
             "bytes": gen_bytes,
             "reference_static_flops_per_env_step": GEN_REFERENCE_FLOPS,
             "env_steps_per_s": N_ENVS / gen_step_s,
             "profile": gen_profile,
             "block": gen_kernels.BLOCK,
             "ms_by_envs_and_block": sweep,
+            "launches_by_path": {"v2 ant env.step": gen_launches,
+                                 "PPO v2 ant": v2_launches["gen_step"],
+                                 **{f"v2 {name} env.step": r["launches"]
+                                    for name, r in v2_records.items()}},
+            "by_env": {name: {
+                **record,
+                "max_abs_err": max(max(c[0].values()) for c in v2_checks[name].values()),
+                "max_abs_err_by_check": {k: c[0] for k, c in v2_checks[name].items()},
+                "outlier_envs_decided_by_rounding": {k: c[2] for k, c in v2_checks[name].items()},
+                "contact_share_lowered": v2_contact[name],
+            } for name, record in v2_records.items()},
+            "card": name_limit,
+        },
+        {
+            "name": "probe_copy_plus_one",
+            "route": "cuda",
+            "source": "brax_torch/csrc/probe.cu",
+            "replaces": "tools/probe_pallas_overhead.py:52",
+            "replaces_function": "tools/probe_pallas_overhead.py::copy_k (trivial :52, "
+                                 "gridded :62)",
+            "launches": probe_launches["probe_copy_plus_one"],
+            "replayed_launches": probe_replayed["probe_copy_plus_one"],
+            "launches_counts": "wrapper calls that reached the kernel, host-issued and "
+                               "captured into a graph; graph replays under replayed_launches",
+            "launches_on_env_and_ppo_paths": probe_on_paths["probe_copy_plus_one"],
+            "max_abs_err": max(copy_errs.values()),
+            "tolerance": "exact",
+            "shape": "[8, 128] f32, one block",
+            "ms": probe_times["trivial_us"]["graph"] / 1e3,
+            "ms_host_issued": probe_times["trivial_us"]["host"] / 1e3,
+            "plain_ms": copy_plain_ms,
+            "bound_ms": copy_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "library_ms": probe_times["torch_add_trivial_us"]["graph"] / 1e3,
+            "library_ms_host_issued": probe_times["torch_add_trivial_us"]["host"] / 1e3,
+            "library": "torch.add(x, 1, out=o), PyTorch's eager kernel, graph-replayed",
+            "us_per_launch": {k: probe_times[k] for k in ("trivial_us", "grid10_us",
+                                                           "grid40_us")},
+            "card": name_limit,
+        },
+        {
+            "name": "probe_dot_chain",
+            "route": "cuda",
+            "source": "brax_torch/csrc/probe.cu",
+            "replaces": "tools/probe_pallas_overhead.py:84",
+            "replaces_function": "tools/probe_pallas_overhead.py::chain_k (dotchain :84, "
+                                 "dotchain5120 :99)",
+            "launches": probe_launches["probe_dot_chain"],
+            "replayed_launches": probe_replayed["probe_dot_chain"],
+            "launches_counts": "wrapper calls that reached the kernel, host-issued and "
+                               "captured into a graph; graph replays under replayed_launches",
+            "launches_on_env_and_ppo_paths": probe_on_paths["probe_dot_chain"],
+            "max_abs_err": max(chain_errs.values()),
+            "max_abs_err_by_shape": {f"[{r}, 256] k={k}": e for (r, k), e in chain_errs.items()},
+            "tolerance": {"bf16_rel_to_max": BF16_REL},
+            "shape": f"[5120, 256] @ [256, 256], k={k_main}",
+            "ms": probe_times[f"dotchain5120_{k_main}_us"]["graph"] / 1e3,
+            "ms_host_issued": probe_times[f"dotchain5120_{k_main}_us"]["host"] / 1e3,
+            "plain_ms": chain_plain_ms,
+            "bound_ms": probe_bound[5120, k_main][0],
+            "bound_by": probe_bound[5120, k_main][1],
+            "library_ms": None,
+            "cublas_chain_ms": probe_times[f"cublas_dotchain5120_{k_main}_us"]["graph"] / 1e3,
+            "us_per_launch": {k: v for k, v in probe_times.items() if "dotchain" in k},
+            "bound_ms_by_shape": {f"[{r}, 256] k={k}": b[0] for (r, k), b in probe_bound.items()},
+            "fused_mlp_fwd_value_5120_us": probe_times["fwd1_us"],
             "card": name_limit,
         },
     ]}))

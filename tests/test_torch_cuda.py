@@ -1,5 +1,5 @@
-"""The CUDA kernels (PBD step, fused MLP, generalized step) against their
-plain versions, on a CUDA card.
+"""The CUDA kernels (PBD step, fused MLP, generalized step, the launch-overhead
+probe) against their plain versions, on a CUDA card.
 
 These tests skip without a card.  This file imports no JAX, so that it runs
 where only PyTorch is installed:
@@ -12,8 +12,10 @@ import dataclasses
 import pytest
 import torch
 
+from brax_torch import cuda_build
 from brax_torch.envs.ant import Ant
 from brax_torch.sim import kernels
+from brax_torch.tools import probe_overhead as probe
 from brax_torch.training import fused_mlp
 from brax_torch.v2 import envs as v2_envs
 from brax_torch.v2.generalized import kernels as gen_kernels
@@ -102,6 +104,8 @@ def _close(got, want, bf16, kind):
 @pytest.mark.parametrize("lead,d0,sizes,activation", [
     ((137,), 87, (256,) * 5 + (1,), "swish"),
     ((137,), 87, (32,) * 4 + (16,), "swish"),
+    ((137,), 27, (256,) * 5 + (1,), "swish"),
+    ((137,), 27, (32,) * 4 + (16,), "swish"),
     ((64,), 87, (64, 64, 8), "relu"),
     ((33,), 87, (40, 3), "tanh"),
     ((5, 33), 29, (64, 7), "swish"),
@@ -241,3 +245,100 @@ def test_gen_kernel_raises_on_unsupported_system_and_cpu_inputs(cuda):
         gen_kernels.gen_step(other, *ins, 1)
     with pytest.raises(ValueError, match="one CUDA device"):
         gen_kernels.gen_step(sys, *ins[:3], ins[3].cpu(), 1)
+
+
+# the v2 envs beside ant that the generalized kernel covers
+V2_ENVS = ("inverted_pendulum", "inverted_double_pendulum", "reacher", "halfcheetah", "hopper",
+           "walker2d")
+
+
+@pytest.fixture(scope="module")
+def gen_scenes():
+    """Builds the kernel of every v2 scene at once, one nvcc each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel runs only there")
+    systems = [v2_envs.get_environment(name, device="cuda").sys for name in V2_ENVS]
+    cuda_build.build(*(gen_kernels.kernel_source(s) for s in systems))
+
+
+@pytest.mark.parametrize("name", V2_ENVS)
+def test_gen_kernel_matches_plain_per_env(cuda, gen_scenes, name):
+    """128 envs of each scene: three env steps, one launch each, then one
+    kernel call against the plain version at the env's n_frames, every env
+    within tolerance."""
+    n = 128
+    env = v2_envs.create(name, batch_size=n, device=cuda)
+    bare = env.unwrapped
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    state = env.reset(gen)
+    act = lambda: torch.rand((n, bare.action_size), generator=gen, device=cuda) * 2 - 1
+    before = gen_kernels.gen_step_soa.launches
+    for _ in range(3):
+        state = env.step(state, act())
+    torch.cuda.synchronize()
+    assert gen_kernels.gen_step_soa.launches == before + 3
+    assert torch.isfinite(state.obs).all()
+    ps = state.pipeline_state
+    ins = (ps.q, ps.qd, ps.mass_mx_inv, act())
+    got = gen_kernels.gen_step(bare.sys, *ins, bare._n_frames)
+    want = gen_kernels.gen_step_plain(bare.sys, *ins, bare._n_frames)
+    assert sorted(got) == sorted(want)
+    inside = torch.ones(n, dtype=torch.bool, device=cuda)
+    for k, v in want.items():
+        assert torch.isfinite(got[k]).all(), k
+        inside &= (got[k] - v).abs().reshape(n, -1).amax(dim=1) <= GEN_TOL[k]
+    assert bool(inside.all()), int((~inside).sum())
+
+
+# ---------------------------------------------------------------------------
+# launch-overhead probe
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rows,k", [(64, 3), (512, 6), (5120, 24)])
+def test_probe_dot_chain_matches_plain(cuda, rows, k):
+    """bf16 products with f32 sums, summed in another order than the plain
+    version's: max |err| <= 1e-2 max |plain| (the fused MLP's bf16 rule)."""
+    gen = torch.Generator(device=cuda).manual_seed(rows + k)
+    x = torch.randn((rows, probe.WIDTH), generator=gen, device=cuda)
+    w = torch.randn((probe.WIDTH, probe.WIDTH), generator=gen, device=cuda) * 0.05
+    before = probe.dot_chain.launches
+    got = probe.dot_chain(x, w, k)
+    torch.cuda.synchronize()
+    assert probe.dot_chain.launches == before + 1
+    want = probe.dot_chain_plain(x, w, k)
+    assert float((got - want).abs().max()) <= BF16_REL * float(want.abs().max())
+
+
+@pytest.mark.parametrize("blocks", [1, 10, 40])
+def test_probe_copy_plus_one_is_exact(cuda, blocks):
+    x = torch.randn(probe.TILE, device=cuda)
+    before = probe.copy_plus_one.launches
+    got = probe.copy_plus_one(x, blocks)
+    torch.cuda.synchronize()
+    assert probe.copy_plus_one.launches == before + 1
+    assert torch.equal(got, probe.copy_plus_one_plain(x))
+
+
+def test_probe_wrappers_raise_on_bad_inputs(cuda):
+    x = torch.zeros((8, probe.WIDTH), device=cuda)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        probe.dot_chain(x, torch.zeros((probe.WIDTH, probe.WIDTH)), 2)
+    with pytest.raises(ValueError, match="takes"):
+        probe.dot_chain(x[:, :128].contiguous(), torch.zeros((128, 128), device=cuda), 2)
+    with pytest.raises(ValueError, match="at least one"):
+        probe.dot_chain(x, torch.zeros((probe.WIDTH, probe.WIDTH), device=cuda), 0)
+
+
+def test_probe_measure_times_every_key(cuda):
+    replayed = probe.copy_plus_one.replayed, probe.dot_chain.replayed
+    r = probe.result(probe.measure())
+    keys = ("trivial_us", "grid10_us", "grid40_us", "dotchain6_us", "dotchain24_us",
+            "dotchain5120_6_us", "dotchain5120_24_us", "fwd1_us", "fwd10_us")
+    for key in keys:
+        assert r[key] > 0 and r["host"][key] > 0, key
+    assert sorted(r["cublas_chain"]) == sorted(k for k in keys if k.startswith("dotchain"))
+    assert r["torch_add_trivial"]["graph"] > 0 and r["torch_add_trivial"]["host"] > 0
+    # every graph replays its launches BATCHES + 1 times
+    assert probe.copy_plus_one.replayed - replayed[0] == 3 * (probe.BATCHES + 1) * probe.LENGTH
+    assert probe.dot_chain.replayed - replayed[1] == 4 * (probe.BATCHES + 1) * probe.CHAIN_LENGTH

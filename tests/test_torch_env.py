@@ -97,7 +97,9 @@ def _imports(path):
 def test_port_imports_no_jax():
     files = sorted((REPO / "brax_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 50
-    assert REPO / "brax_torch" / "v2" / "generalized" / "kernels.py" in files
+    for module in ("v2/generalized/kernels.py", "v2/envs/hopper.py", "v2/envs/reacher.py",
+                   "tools/probe_overhead.py"):
+        assert REPO / "brax_torch" / module in files, module
     bad = [
         (str(f.relative_to(REPO)), name)
         for f in files
@@ -111,7 +113,8 @@ def test_importing_the_port_loads_no_brax_tpu():
     code = (
         "import sys, brax_torch.envs, brax_torch.sim.kernels, brax_torch.braxlines.defaults, "
         "brax_torch.training.agents.ppo.train, brax_torch.v2.envs, brax_torch.v2.mjcf, "
-        "brax_torch.v2.generalized.kernels; "
+        "brax_torch.v2.generalized.kernels, brax_torch.v2.envs.walker2d, "
+        "brax_torch.tools.probe_overhead; "
         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('brax_tpu', 'flax', 'optax')))"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -37,10 +37,17 @@ def sys():
 
 @pytest.fixture(scope="module")
 def start():
-    """(q, qd, M^-1, act) numpy: the JAX init state of v2_inputs, in contact."""
+    """(q, qd, M^-1, act) numpy: the JAX init state of v2_inputs, in contact.
+
+    M^-1 is pipeline.init's with its upper triangle mirrored, as the inverse
+    the kernel carries from frame to frame is: the port's refresh mirrors
+    its warm start, the JAX kernel's doubles the antisymmetric part at each
+    Newton-Schulz iteration (test_inv_ns_mirrors_the_warm_start)."""
     q, qd, act = tp.v2_inputs()
     s0, _ = tp.jax_v2_states()
-    return q, qd, np.array(s0.mass_mx_inv), act
+    minv = np.array(s0.mass_mx_inv)
+    upper = np.triu(np.ones(minv.shape[1:], dtype=bool))
+    return q, qd, np.where(upper, minv, np.swapaxes(minv, 1, 2)), act
 
 
 def _tile_frames(n_frames, q, qd, minv, act):
@@ -92,6 +99,25 @@ def test_wrapper_runs_the_plain_version_on_cpu(sys, start):
     shapes = kernels.out_shapes(sys)
     assert {k: tuple(v.shape[1:]) for k, v in got.items()} == shapes
     assert shapes["minv"] == (14, 14) and shapes["c_pen"] == (4,)
+
+
+def test_inv_ns_mirrors_the_warm_start():
+    """An antisymmetric part of 1e-6 in the warm start: mirrored away, the
+    refresh converges to M^-1 and returns it exactly symmetric; the JAX
+    kernel's unmirrored iteration doubles that part 4 times a frame."""
+    rng = np.random.RandomState(3)
+    a = rng.randn(2, 6, 6)
+    mx = torch.from_numpy((a @ a.transpose(0, 2, 1) + 6 * np.eye(6)).astype(np.float32))
+    exact = torch.linalg.inv(mx.double()).float()
+    skew = torch.from_numpy(rng.randn(2, 6, 6).astype(np.float32))
+    warm = exact + 1e-6 * (skew - skew.transpose(1, 2))
+    out = kernels._inv_ns(mx, warm)
+    assert torch.equal(out, out.transpose(1, 2))
+    torch.testing.assert_close(out, exact, rtol=1e-5, atol=1e-6)
+    x = warm
+    for _ in range(kernels.NS_ITERS):
+        x = 2 * x - kernels._mm_upper(x, kernels._mm(mx, x))
+    assert float((x - x.transpose(1, 2)).abs().max()) > 8e-6
 
 
 def test_mm_upper_is_the_products_upper_triangle_mirrored():

@@ -55,7 +55,7 @@ def port_init(sys, inputs):
 def test_system_matches_jax_leaves(sys, how):
     """Every leaf and static field of the JAX ant System, invweight too."""
     want = tp.tree(tp.jax_v2_ant().sys)
-    got = System.from_numpy(want) if how == "from_numpy" else sys
+    got = System.from_numpy(want, device="cpu") if how == "from_numpy" else sys
     got_leaves = list(tp.leaves(tp.tree(got)))
     want_leaves = list(tp.leaves(want))
     assert [p for p, _ in got_leaves] == [p for p, _ in want_leaves]
