@@ -1,9 +1,8 @@
 """v2 environment registry (`brax_tpu/v2/envs/__init__.py`).
 
 Ported: ant, halfcheetah, hopper, inverted_double_pendulum,
-inverted_pendulum, reacher and walker2d.  humanoid raises: its System is
-past what one thread per env of the generalized kernel holds (ROADMAP.md,
-queue B item 3).
+inverted_pendulum, reacher and walker2d.  humanoid raises: its env is not
+ported yet (ROADMAP.md, queue A item 11).
 """
 
 from __future__ import annotations
@@ -31,9 +30,9 @@ _envs: Dict[str, Type[PipelineEnv]] = {
 }
 
 _NOT_PORTED = {
-    "humanoid": "humanoid (nd 23, ~80 constraint rows) needs the generalized kernel's "
-                "redesign first, one thread per env does not hold it (see ROADMAP.md, "
-                "queue A item 11 and queue B item 3)",
+    "humanoid": "humanoid (nd 23, ~80 constraint rows) is not ported yet; since the "
+                "generalized kernel's redesign (a warp per env) its workspace fits, ~52 KB "
+                "of shared memory per env (see ROADMAP.md, queue A item 11)",
 }
 
 

@@ -23,6 +23,13 @@ gen_step.cu into `build/brax_torch/`, and `cuda_build` compiles it at first
 use.  Scene constants (inertias, frames, axes, limits, gears, contact
 geometry) are read from a float table, `pack_tables(sys)`.
 
+The kernel runs a warp per env, the env's workspace in shared memory.
+`workspace_bytes` and `block_fixed_bytes` reckon that memory from the
+scene's sizes (the header passes both to the source, which checks them
+against its own layout); `max_envs_per_block` bounds a block by the 227 KB
+a block may take, and `default_envs_per_block` picks the envs per block for
+a batch from the waves of blocks the launch takes.
+
 Every sum of the plain version runs left to right, in the order the kernel
 sums (`brax_torch/v2/ordered.py`), so that the two round alike.  Kinematics,
 contact points, the impedance and the integrator are those of the pipeline
@@ -35,6 +42,7 @@ in the kernel's order.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 from typing import Dict, List, Tuple
 
@@ -49,9 +57,26 @@ from brax_torch.v2.generalized.base import State
 from brax_torch.v2.geometry import contact
 
 SOURCE = cuda_build.CSRC / "gen_step.cu"
-# 32-thread blocks: 4096 envs over 128 blocks, so over 128 of the 132 SMs
-BLOCK = 32
 NS_ITERS = 4
+# sm_90 (H100): dynamic shared memory one block may take, shared memory per
+# SM and the part of it the runtime keeps per resident block; resident
+# warps and blocks per SM
+MAX_SMEM_PER_BLOCK = 232_448
+SMEM_PER_SM = 233_472
+SMEM_RESERVED_PER_BLOCK = 1_024
+MAX_WARPS_PER_SM = 64
+MAX_BLOCKS_PER_SM = 32
+# registers: 16,384 in each of an SM's 4 sub-partitions, granted to a warp
+# in units of 256
+SUBPARTITION_REGISTERS = 16_384
+# the kernel's launch bound (gen_step.cu::MAX_ENVS_PER_BLOCK): 16 warps
+MAX_ENVS_PER_BLOCK = 16
+# A wave of blocks takes about as long with up to this many warps resident
+# per SM as with this many, and longer, about as the square root of the
+# warps, above it: the per-warp chain of dependent operations sets the
+# floor, the SM's issue rate the rise (chip_smoke.py's envs-per-block
+# sweep, PERF.md)
+WAVE_FLOOR_WARPS = 11
 OUT_KEYS = ("q", "qd", "minv", "x_pos", "x_rot", "xd_ang", "xd_vel", "c_pos", "c_pen")
 
 # ---------------------------------------------------------------------------
@@ -244,6 +269,110 @@ def pack_tables(sys: System) -> np.ndarray:
     return np.asarray(fl, dtype=np.float32)
 
 
+def _r16(n_bytes: int) -> int:
+    return -(-n_bytes // 16) * 16
+
+
+def _dims(p) -> Tuple[int, ...]:
+    return p.nl, p.nq, p.nd, p.nc, len(p.act_qdid), p.nr, len(p.lim_dofs)
+
+
+@functools.lru_cache(maxsize=None)
+def _shared_bytes(nl: int, nq: int, nd: int, nc: int, na: int, nr: int,
+                  nlim: int) -> Tuple[int, int]:
+    """(workspace bytes per env, fixed bytes per block) of a scene's sizes."""
+    nc1, na1, nr1 = max(nc, 1), max(na, 1), max(nr, 1)
+    size = lambda floats: sum(_r16(4 * f) for f in floats)
+    carried = [nq, nd, na1, nd * nd]
+    frame = ([3 * nl, 4 * nl, 3 * nc1, nc1, 3, 9 * nl, 3 * nl] + [3 * nd] * 4
+             + [3 * nl, 3 * nl, nd * nd, nd, nd])
+    scratch = [
+        [3 * nl, 4 * nl, 3 * nd, 3 * nd],  # transform_com
+        [9 * nl, 3 * nl, 3 * nd, 3 * nd],  # mass_matrix
+        [nd * nd] * 4 + [nd],  # inv_ns, the damping fold
+        [3 * nl, 3 * nl],  # bias_forces
+        [nr1 * nd, nr1 * nd, nr1 * nr1] + [nr1] * 14,  # constraint_forces, fista
+        [3 * nl, 3 * nl],  # final velocities
+    ]
+    workspace = size(carried) + size(frame) + max(size(s) for s in scratch)
+    table = GLOBAL_SIZE + nl * LINK_SIZE + nd * DOF_SIZE + na * ACT_SIZE + nc * CONTACT_SIZE
+    nlim1 = max(nlim, 1)
+    masks = 2 * _r16(8 * nl) + _r16(8 * nd) + _r16(8 * nr1)
+    ints = 6 * _r16(4 * nl) + 2 * _r16(4 * nd) + _r16(4 * nc1) + 2 * _r16(4 * nlim1)
+    return workspace, _r16(4 * table) + masks + ints
+
+
+def workspace_bytes(p) -> int:
+    """Shared memory of one env's workspace (gen_step.cu's `Work`): every
+    member is 16-byte aligned, so a struct is the sum of its members, each
+    rounded up to 16 bytes, and the union of stage scratch the largest of
+    its structs.  `p` needs nl, nq, nd, nc, nr, act_qdid and lim_dofs (a
+    Plan)."""
+    return _shared_bytes(*_dims(p))[0]
+
+
+def block_fixed_bytes(p) -> int:
+    """Shared memory of a block before its envs' workspaces: the scene's
+    float table and its structure (gen_step.cu's `Scene`)."""
+    return _shared_bytes(*_dims(p))[1]
+
+
+def max_envs_per_block(p) -> int:
+    """The most envs one block holds: the shared memory limit, and the
+    kernel's launch bound.  Raises NotImplementedError for a scene whose
+    workspace does not fit one block with one env."""
+    ws, fixed = workspace_bytes(p), block_fixed_bytes(p)
+    if fixed + ws > MAX_SMEM_PER_BLOCK:
+        raise NotImplementedError(
+            f"the generalized kernel needs {fixed + ws} bytes of shared memory for one env "
+            f"({ws} of workspace, {fixed} of tables), more than the {MAX_SMEM_PER_BLOCK} a "
+            f"block may take")
+    return min((MAX_SMEM_PER_BLOCK - fixed) // ws, MAX_ENVS_PER_BLOCK)
+
+
+def envs_per_sm(p, envs_per_block: int, registers: int = 0) -> int:
+    """Envs resident on one SM at `envs_per_block`: by shared memory, warps,
+    blocks and, where known, registers per thread."""
+    smem = block_fixed_bytes(p) + envs_per_block * workspace_bytes(p)
+    blocks = min(SMEM_PER_SM // (smem + SMEM_RESERVED_PER_BLOCK), MAX_BLOCKS_PER_SM,
+                 MAX_WARPS_PER_SM // envs_per_block)
+    if registers:
+        per_warp = -(-registers * 32 // 256) * 256
+        blocks = min(blocks, 4 * (SUBPARTITION_REGISTERS // per_warp) // envs_per_block)
+    return blocks * envs_per_block
+
+
+def default_envs_per_block(p, n: int, sms: int, registers: int = 0) -> int:
+    """Envs per block for n envs on `sms` SMs: the least time by waves of
+    blocks, each weighed by the square root of the envs (warps) resident
+    per SM, at least WAVE_FLOOR_WARPS; ties go to the larger block, which
+    stages the scene once for more envs."""
+    def cost(e):
+        per_sm = envs_per_sm(p, e, registers)
+        if not per_sm:
+            return float("inf")
+        waves = -(-(-(-n // e)) // (sms * (per_sm // e)))
+        return waves * max(per_sm, WAVE_FLOOR_WARPS) ** 0.5
+    return min(range(1, max_envs_per_block(p) + 1), key=lambda e: (cost(e), -e))
+
+
+def launch_geometry(p, n: int, envs_per_block: int) -> Tuple[int, int, int]:
+    """(blocks, threads per block, shared memory bytes per block) of one
+    launch over n envs, one warp each."""
+    if not 1 <= envs_per_block <= max_envs_per_block(p):
+        raise ValueError(f"envs_per_block {envs_per_block} is outside 1.."
+                         f"{max_envs_per_block(p)} for this scene")
+    return (-(-n // envs_per_block), 32 * envs_per_block,
+            block_fixed_bytes(p) + envs_per_block * workspace_bytes(p))
+
+
+def _depths(parents) -> List[int]:
+    depth = []
+    for par in parents:
+        depth.append(0 if par < 0 else depth[par] + 1)
+    return depth
+
+
 def _carray(name: str, ctype: str, values, width: int = 0) -> str:
     vals = [int(v) for v in np.asarray(values).reshape(-1)] or [0]
     dims = f"[{max(len(vals) // width, 1)}][{width}]" if width else f"[{len(vals)}]"
@@ -255,6 +384,7 @@ def scene_header(sys: System) -> str:
     p = plan(sys)
     na = len(p.act_qdid)
     ltype = [0 if t == "f" else int(t) for t in p.link_types]
+    depth = _depths(p.parents)
     # the impedance constants as the JAX package folds them: in double, then
     # rounded to float32 where they meet a float32 array
     dmin, dmax, timeconst = 0.9, 0.95, 0.02
@@ -267,9 +397,12 @@ def scene_header(sys: System) -> str:
         f"#define GS_ITERS {p.solver_iters}\n#define GS_NS_ITERS {NS_ITERS}\n",
         f"#define GS_NL {p.nl}\n#define GS_NQ {p.nq}\n#define GS_ND {p.nd}\n",
         f"#define GS_NC {p.nc}\n#define GS_NA {na}\n#define GS_NR {p.nr}\n",
-        f"#define GS_NLIM {len(p.lim_dofs)}\n",
+        f"#define GS_NLIM {len(p.lim_dofs)}\n#define GS_DEPTH {max(depth)}\n",
+        f"#define GS_WS_BYTES {workspace_bytes(p)}\n",
+        f"#define GS_FIXED_BYTES {block_fixed_bytes(p)}\n",
         _carray("LTYPE", "int", ltype),
         _carray("PARENT", "int", p.parents),
+        _carray("LDEPTH", "int", depth),
         _carray("COM_PARENT", "int", p.com_parent),
         _carray("Q_OFF", "int", p.q_off),
         _carray("QD_OFF", "int", p.qd_off),
@@ -283,7 +416,6 @@ def scene_header(sys: System) -> str:
         _carray("C_LINK", "int", p.c_link),
         _carray("LIM_Q", "int", p.lim_qs),
         _carray("LIM_D", "int", p.lim_dofs),
-        _carray("ROW_NNZ", "int", [len(r) for r in p.row_dofs]),
     ]
     return "".join(lines)
 
@@ -305,8 +437,11 @@ def _setup(lib, path) -> None:
     fn = lib.brax_gen_step
     fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    sizes = lib.brax_gen_step_sizes
-    sizes.argtypes, sizes.restype = [ctypes.c_void_p], ctypes.c_int
+    for name in ("brax_gen_step_sizes", "brax_gen_step_init"):
+        f = getattr(lib, name)
+        f.argtypes, f.restype = [ctypes.c_void_p], ctypes.c_int
+    occ = lib.brax_gen_step_occupancy
+    occ.argtypes, occ.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
 
 
 _LIBRARIES: Dict[str, cuda_build.Library] = {}
@@ -321,19 +456,62 @@ def library(sys: System) -> cuda_build.Library:
     return lib
 
 
-def _loaded(sys: System) -> ctypes.CDLL:
-    """The loaded kernel for `sys`, its sizes checked against the plan;
-    kept on the System so that a step does not regenerate the source."""
+def _loaded(sys: System, device: torch.device) -> ctypes.CDLL:
+    """The loaded kernel for `sys`, its sizes checked against the plan and
+    its shared-memory limit raised on `device`; kept on the System so that
+    a step does not regenerate the source."""
     lib = sys.__dict__.get("_gen_lib")
     if lib is None:
         p = plan(sys)
+        max_envs_per_block(p)  # raises for a workspace that does not fit one block
         lib = library(sys).get()
-        sizes = (ctypes.c_int * 6)()
+        sizes = (ctypes.c_int * 9)()
         lib.brax_gen_step_sizes(sizes)
-        if tuple(sizes) != (p.nl, p.nq, p.nd, p.nc, len(p.act_qdid), p.nr):
-            raise RuntimeError(f"gen_step library sizes {tuple(sizes)} disagree with the plan")
+        want = (p.nl, p.nq, p.nd, p.nc, len(p.act_qdid), p.nr, workspace_bytes(p),
+                block_fixed_bytes(p), MAX_ENVS_PER_BLOCK)
+        if tuple(sizes) != want:
+            raise RuntimeError(f"gen_step library sizes {tuple(sizes)} disagree with the plan's "
+                               f"{want}")
         sys.__dict__["_gen_lib"] = lib
+    ready = sys.__dict__.setdefault("_gen_ready", {})
+    if device not in ready:
+        attrs = (ctypes.c_int * 2)()
+        with torch.cuda.device(device):
+            err = lib.brax_gen_step_init(attrs)
+        if err != 0:
+            raise RuntimeError(f"gen_step kernel setup failed: CUDA error {err}")
+        ready[device] = {"registers": attrs[0], "local_bytes": attrs[1],
+                         "sms": torch.cuda.get_device_properties(device).multi_processor_count}
     return lib
+
+
+def launch_envs_per_block(sys: System, device: torch.device, n: int) -> int:
+    """The default envs per block for n envs of `sys` on `device`
+    (`default_envs_per_block` with the loaded kernel's registers)."""
+    ready = kernel_attributes(sys, device)
+    cache = ready.setdefault("envs_per_block", {})
+    if n not in cache:
+        cache[n] = default_envs_per_block(plan(sys), n, ready["sms"], ready["registers"])
+    return cache[n]
+
+
+def resident_blocks(sys: System, device: torch.device, envs_per_block: int) -> int:
+    """Blocks of `envs_per_block` envs resident per SM on `device`, by the
+    CUDA runtime's occupancy calculator."""
+    lib = _loaded(sys, device)
+    blocks = ctypes.c_int()
+    with torch.cuda.device(device):
+        err = lib.brax_gen_step_occupancy(envs_per_block, ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"gen_step occupancy query failed: CUDA error {err}")
+    return blocks.value
+
+
+def kernel_attributes(sys: System, device: torch.device) -> Dict[str, int]:
+    """The loaded kernel on `device`: registers and local (stack) bytes per
+    thread as the runtime reports them, and the device's SM count."""
+    _loaded(sys, device)
+    return sys.__dict__["_gen_ready"][device]
 
 
 def ptxas_report(sys: System) -> str:
@@ -762,13 +940,14 @@ def out_shapes(sys: System) -> Dict[str, Tuple[int, ...]]:
 
 
 def gen_step_soa(sys: System, q_t: Tensor, qd_t: Tensor, minv_t: Tensor, act_t: Tensor,
-                 n_frames: int, block: int = BLOCK) -> Dict[str, Tensor]:
+                 n_frames: int, block: int = 0) -> Dict[str, Tensor]:
     """The kernel on its own layout: one launch, no transposes.
 
     Inputs are (field, N): q_t (nq, N), qd_t (nd, N), minv_t (nd*nd, N) and
-    act_t (na, N), contiguous float32 on one CUDA device; `block` is the
-    number of threads (envs) per block.  Returns the outputs of
-    `gen_step_plain` in the same layout, each (fields, N).
+    act_t (na, N), contiguous float32 on one CUDA device.  Each env takes
+    one warp; `block` is the number of envs (warps) per block, 0 for
+    `default_envs_per_block`.  Returns the outputs of `gen_step_plain` in
+    the same layout, each (fields, N).
     """
     ins = (q_t, qd_t, minv_t, act_t)
     device = q_t.device
@@ -790,7 +969,9 @@ def gen_step_soa(sys: System, q_t: Tensor, qd_t: Tensor, minv_t: Tensor, act_t: 
                           ("act", act_t, na)):
         if t.shape != (rows, n):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(rows, n)}")
-    lib = _loaded(sys)
+    lib = _loaded(sys, device)
+    block = block or launch_envs_per_block(sys, device, n)
+    launch_geometry(p, n, block)  # checks block against the scene's shared memory
     outs = {k: torch.empty((int(np.prod(s)), n), device=device, dtype=torch.float32)
             for k, s in out_shapes(sys).items()}
     if not p.nc:  # the kernel always takes contact outputs

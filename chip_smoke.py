@@ -35,8 +35,8 @@
    batch_size=4096), reset, 200 env.step calls, one kernel launch each;
 11. times that kernel, its plain version and v2 env.step, profiles 20
    env.step calls, counts the plain version's operations for the bound,
-   and times the kernel at 32, 64 and 128 threads per block at 4096 and
-   16384 envs;
+   and times the kernel (a warp per env) at every envs-per-block its
+   shared memory allows, at 4096 and 16384 envs (one pass);
 12. holds the generalized-step kernel of each other v2 env (inverted
    pendulum, inverted double pendulum, reacher, halfcheetah, hopper,
    walker2d) against its plain version at 4096 envs and the env's n_frames,
@@ -59,12 +59,17 @@
    {"ok": true, "device": {...}}.
 
 The CUDA sources are built at the start, one nvcc each, in parallel (the
-generalized step once per v2 scene).
+generalized step once per v2 scene); for each scene the generalized step's
+launch is printed: ptxas's registers, stack and spills, shared memory per
+env and per block, envs per block, resident blocks per SM and waves at
+4096 envs and at PPO's batch.  Each gen_step parity check also counts the
+envs whose outputs are bit-identical to the plain version's.
 It fails, printing no result, without a CUDA device.  Imports nothing of
 JAX.
 """
 
 import json
+import re
 import sys
 import time
 
@@ -126,8 +131,7 @@ GEN_MAX_OUTLIERS = 8
 GEN_FRAMES = 5  # ant's n_frames (brax_tpu/v2/envs/ant.py:32)
 # the reference's static count of one gen ant env step (bench.py:291)
 GEN_REFERENCE_FLOPS = 687_989
-# threads per block and batch sizes of the gen_step block-size sweep (one pass)
-GEN_BLOCKS = (32, 64, 128)
+# batch sizes of the gen_step envs-per-block sweep (one pass each)
 GEN_SWEEP_ENVS = (N_ENVS, 4 * N_ENVS)
 # the v2 envs beside ant, and those of them with floor contacts
 V2_ENVS = ("inverted_pendulum", "inverted_double_pendulum", "reacher", "halfcheetah", "hopper",
@@ -310,7 +314,9 @@ def gen_max_errors(sys_, ins, n_frames, gen, label):
     """Kernel vs plain version at n_frames: as max_errors, on GEN_TOLERANCE,
     with at most GEN_MAX_OUTLIERS envs, each decided by rounding.  Also
     prints the per-env median and p90 of the q and qd errors beside
-    GEN_MULTI_FRAME_BOUNDS and raises if they exceed them."""
+    GEN_MULTI_FRAME_BOUNDS and raises if they exceed them, and counts the
+    envs whose outputs all equal the plain version's bit for bit.  Returns
+    (errors, errors within tolerance, outliers, bit-identical envs)."""
     out = gen_kernels.gen_step(sys_, *ins, n_frames)
     ref = gen_kernels.gen_step_plain(sys_, *ins, n_frames)
     torch.cuda.synchronize()
@@ -330,6 +336,10 @@ def gen_max_errors(sys_, ins, n_frames, gen, label):
               f"(bound {med_bound:.0e}), p90 {p90:.3e} (bound {p90_bound:.0e})")
         if med >= med_bound or p90 >= p90_bound:
             raise AssertionError(f"gen_step {k} per-env errors beyond the multi-frame bounds")
+    n = over.numel()
+    identical = int(torch.stack([(out[k] == ref[k]).reshape(n, -1).all(dim=1)
+                                 for k in per_env]).all(dim=0).sum())
+    print(f"gen_step parity {label}: {identical}/{n} envs bit-identical to the plain version")
     idx = over.nonzero().flatten()
     outliers = len(idx)
     print(f"gen_step parity {label}: {outliers} outlier envs of {over.numel()} "
@@ -344,7 +354,7 @@ def gen_max_errors(sys_, ins, n_frames, gen, label):
         if not bool(decided.all()):
             raise AssertionError(f"gen_step disagrees with its plain version in envs "
                                  f"{idx[~decided].tolist()}, beyond rounding: {errs}")
-    return errs, inside_errs, outliers
+    return errs, inside_errs, outliers, identical
 
 
 def gen_bound(sys_, ins, n_frames):
@@ -363,6 +373,47 @@ def gen_bound(sys_, ins, n_frames):
     ops_ms = counter.ops / FP32_OPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", \
         counter.ops, n_bytes
+
+
+def ptxas_figures(report):
+    """Registers, stack frame and spill bytes from a ptxas report."""
+    regs = re.search(r"Used (\d+) registers", report)
+    frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", report)
+    return {"registers": int(regs.group(1)), "stack_bytes": int(frame.group(1)),
+            "spill_store_bytes": int(frame.group(2)), "spill_load_bytes": int(frame.group(3))}
+
+
+def gen_launch_report(name, sys_, batches):
+    """The generalized step's launch for a scene: ptxas's figures, shared
+    memory per env and per block, and, per batch size, envs per block,
+    resident blocks per SM (the CUDA runtime's occupancy) and waves."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    p = gen_kernels.plan(sys_)
+    attrs = gen_kernels.kernel_attributes(sys_, dev)
+    rec = {**ptxas_figures(gen_kernels.ptxas_report(sys_)),
+           "local_bytes_per_thread": attrs["local_bytes"],
+           "smem_bytes_per_env": gen_kernels.workspace_bytes(p),
+           "smem_bytes_fixed_per_block": gen_kernels.block_fixed_bytes(p),
+           "max_envs_per_block": gen_kernels.max_envs_per_block(p)}
+    for n in batches:
+        e = gen_kernels.launch_envs_per_block(sys_, dev, n)
+        blocks, threads, smem = gen_kernels.launch_geometry(p, n, e)
+        resident = gen_kernels.resident_blocks(sys_, dev, e)
+        rec[f"at_{n}"] = {"envs_per_block": e, "threads_per_block": threads,
+                          "smem_bytes_per_block": smem, "blocks": blocks,
+                          "resident_blocks_per_sm": resident,
+                          "resident_envs_per_sm": resident * e,
+                          "waves": blocks / (attrs["sms"] * resident)}
+    print(f"gen_step launch {name}: {rec['registers']} registers, stack {rec['stack_bytes']} B, "
+          f"spills {rec['spill_store_bytes']}/{rec['spill_load_bytes']} B; shared memory "
+          f"{rec['smem_bytes_per_env']} B per env + {rec['smem_bytes_fixed_per_block']} B per "
+          f"block; " + "; ".join(
+              f"{n} envs: {r['envs_per_block']} per block ({r['smem_bytes_per_block']} B), "
+              f"{r['resident_blocks_per_sm']} blocks ({r['resident_envs_per_sm']} envs) resident "
+              f"per SM, {r['blocks']} blocks = {r['waves']:.2f} waves"
+              for n, r in ((n, rec[f"at_{n}"]) for n in batches)))
+    return rec
 
 
 def v2_parity(name, env, gen):
@@ -727,6 +778,9 @@ def main():
     print(probe.ptxas_report().strip())
     for scene in scenes:
         print(gen_kernels.ptxas_report(scene).strip())
+    gen_batches = (N_ENVS, recipe()["num_envs"])
+    gen_launches_by_scene = {name: gen_launch_report(name, scene, gen_batches)
+                             for name, scene in zip(("ant",) + V2_ENVS, scenes)}
 
     # the probe runs on no env or PPO path: its counts, set to 0 here, are
     # read before its own phase
@@ -1019,15 +1073,19 @@ def main():
     else:
         print("profile: v2 env.step: no device time recorded (not measured)")
 
-    # -- gen_step block sizes: one pass --------------------------------------------
-    phase("gen_step block sizes")
+    # -- gen_step envs per block: one pass -----------------------------------------
+    phase("gen_step envs per block")
     sweep = {}
     for n_sweep in GEN_SWEEP_ENVS:
         sweep_ins = tuple(x.repeat(1, n_sweep // N_ENVS).contiguous() for x in gen_soa)
-        sweep[n_sweep] = {block: cuda_ms(lambda: gen_kernels.gen_step_soa(
-            gen_sys, *sweep_ins, GEN_FRAMES, block=block), 30, 3) for block in GEN_BLOCKS}
-        print(f"timing {tag}: gen_step at {n_sweep} envs by threads per block (ms per "
-              f"launch): {sweep[n_sweep]}")
+        sweep[n_sweep] = {e: cuda_ms(lambda: gen_kernels.gen_step_soa(
+            gen_sys, *sweep_ins, GEN_FRAMES, block=e), 30, 3)
+            for e in range(1, gen_launches_by_scene["ant"]["max_envs_per_block"] + 1)}
+        default = gen_kernels.launch_envs_per_block(gen_sys, sweep_ins[0].device, n_sweep)
+        best = min(sweep[n_sweep], key=sweep[n_sweep].get)
+        print(f"timing {tag}: gen_step at {n_sweep} envs by envs (warps) per block (ms per "
+              f"launch): {sweep[n_sweep]}; default {default} ({sweep[n_sweep][default]:.4f} ms), "
+              f"fastest {best} ({sweep[n_sweep][best]:.4f} ms)")
 
     # -- the other v2 envs: parity at 4096 envs, then each main path ------------------
     phase("v2 envs: gen_step parity")
@@ -1191,6 +1249,7 @@ def main():
             "tolerance": GEN_TOLERANCE,
             "multi_frame_bounds": GEN_MULTI_FRAME_BOUNDS,
             "outlier_envs_decided_by_rounding": {k: c[2] for k, c in gen_checks.items()},
+            "bit_identical_envs": {k: c[3] for k, c in gen_checks.items()},
             "max_outliers": GEN_MAX_OUTLIERS,
             "contact_share": {"after 10 steps": gen_contact, "lowered": low_contact},
             "frames_per_launch": GEN_FRAMES,
@@ -1204,8 +1263,13 @@ def main():
             "reference_static_flops_per_env_step": GEN_REFERENCE_FLOPS,
             "env_steps_per_s": N_ENVS / gen_step_s,
             "profile": gen_profile,
-            "block": gen_kernels.BLOCK,
-            "ms_by_envs_and_block": sweep,
+            "design": "a warp per env, its workspace in shared memory",
+            "envs_per_block": gen_launches_by_scene["ant"][f"at_{N_ENVS}"]["envs_per_block"],
+            "smem_bytes_per_env": gen_launches_by_scene["ant"]["smem_bytes_per_env"],
+            "smem_bytes_per_block": gen_launches_by_scene["ant"][f"at_{N_ENVS}"][
+                "smem_bytes_per_block"],
+            "launch": gen_launches_by_scene["ant"],
+            "ms_by_envs_and_envs_per_block": sweep,
             "launches_by_path": {"v2 ant env.step": gen_launches,
                                  "PPO v2 ant": v2_launches["gen_step"],
                                  **{f"v2 {name} env.step": r["launches"]
@@ -1215,7 +1279,9 @@ def main():
                 "max_abs_err": max(max(c[0].values()) for c in v2_checks[name].values()),
                 "max_abs_err_by_check": {k: c[0] for k, c in v2_checks[name].items()},
                 "outlier_envs_decided_by_rounding": {k: c[2] for k, c in v2_checks[name].items()},
+                "bit_identical_envs": {k: c[3] for k, c in v2_checks[name].items()},
                 "contact_share_lowered": v2_contact[name],
+                "launch": gen_launches_by_scene[name],
             } for name, record in v2_records.items()},
             "card": name_limit,
         },

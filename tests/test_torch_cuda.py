@@ -290,6 +290,48 @@ def test_gen_kernel_matches_plain_per_env(cuda, gen_scenes, name):
     assert bool(inside.all()), int((~inside).sum())
 
 
+@pytest.mark.parametrize("name", ["ant", "halfcheetah"])
+@pytest.mark.parametrize("n", [1, 33, 4095])
+def test_gen_kernel_ragged_batches(cuda, gen_scenes, name, n):
+    """A warp per env, several envs per block: at ragged batch sizes every
+    env matches the plain version bit for bit, or within tolerance in all
+    but 1 in 1000 (chip_smoke.py's rule), and its outputs do not depend on
+    how many envs share its block."""
+    env = v2_envs.create(name, batch_size=n, device=cuda)
+    bare = env.unwrapped
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    act = lambda: torch.rand((n, bare.action_size), generator=gen, device=cuda) * 2 - 1
+    state = env.reset(gen)
+    for _ in range(2):
+        state = env.step(state, act())
+    ps = state.pipeline_state
+    ins = (ps.q, ps.qd, ps.mass_mx_inv, act())
+    nf = bare._n_frames
+    got = gen_kernels.gen_step(bare.sys, *ins, nf)
+    want = gen_kernels.gen_step_plain(bare.sys, *ins, nf)
+    identical = torch.ones(n, dtype=torch.bool, device=cuda)
+    inside = torch.ones(n, dtype=torch.bool, device=cuda)
+    for k, v in want.items():
+        assert torch.isfinite(got[k]).all(), k
+        identical &= (got[k] == v).reshape(n, -1).all(dim=1)
+        inside &= (got[k] - v).abs().reshape(n, -1).amax(dim=1) <= GEN_TOL[k]
+    assert int((~inside).sum()) <= n // 1000, (int(identical.sum()), int((~inside).sum()))
+    soa = tuple(x.reshape(n, -1).t().contiguous() for x in ins)
+    top = gen_kernels.max_envs_per_block(gen_kernels.plan(bare.sys))
+    base = gen_kernels.gen_step_soa(bare.sys, *soa, nf, block=1)
+    for block in (2, top):
+        other = gen_kernels.gen_step_soa(bare.sys, *soa, nf, block=block)
+        assert all(torch.equal(other[k], base[k]) for k in base), block
+
+
+def test_gen_kernel_rejects_blocks_past_its_shared_memory(cuda):
+    sys, ins = _gen_state(cuda, 32, steps=0)
+    soa = tuple(x.reshape(32, -1).t().contiguous() for x in ins)
+    top = gen_kernels.max_envs_per_block(gen_kernels.plan(sys))
+    with pytest.raises(ValueError, match="outside"):
+        gen_kernels.gen_step_soa(sys, *soa, 1, block=top + 1)
+
+
 # ---------------------------------------------------------------------------
 # launch-overhead probe
 # ---------------------------------------------------------------------------
