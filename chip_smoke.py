@@ -18,14 +18,16 @@
 6. holds the fused MLP kernels (brax_torch/csrc/fused_mlp.cu, forward and
    backward) against their plain versions at the PPO ant recipe's shapes,
    with v1 ant's 87-wide and v2 ant's 27-wide observation, in bf16 and f32
-   modes;
+   modes, and prints each shape's launch (fused_mlp.card_plan: pipeline
+   stages, row tile, grid, shared memory);
 7. drives PPO: ppo.train on ant with the published recipe
    (DEFAULT_PPO_PARAMS["ant"]) at full width for 3 training steps and one
    evaluation of 128 envs, and checks the exact launch counts of all three
    kernels, finite losses, changed parameters and a finite eval reward;
-8. times the fused kernels, their plain versions and the same chains as
-   F.linear calls (cuBLAS, a yardstick), PPO env-steps/s with the fused
-   kernels on and off, and profiles one training step each way;
+8. times the fused kernels and the same chains as F.linear calls (cuBLAS,
+   a yardstick) replayed from CUDA graphs and issued by the host, their
+   plain versions, PPO env-steps/s with the fused kernels on and off, and
+   profiles one training step each way;
 9. holds the generalized-step kernel (brax_torch/csrc/gen_step.cu, built
    for the v2 ant) against its plain version at 4096 envs from a state 10
    plain env steps after reset, at one frame and at ant's five, with the
@@ -121,6 +123,8 @@ F32_TOL = {"fwd": (2e-5, 2e-5), "bwd": (2e-4, 2e-5)}
 # two round the same values to bf16, but f32 sums taken in another order
 # can round an activation to a neighbouring bf16 number
 BF16_REL = 1e-2
+# wrapper calls captured in one CUDA graph when a chain is timed replayed
+GRAPH_CALLS = 20
 # generalized step: tests/test_v2_generalized_kernel.py's tolerances, and its
 # per-env bounds for several chained frames (median and p90 of the largest
 # error per env, q and qd), printed beside them for the five-frame step
@@ -568,12 +572,21 @@ def chain_bound(dims, rows, bf16, backward):
 
 
 def time_chain(name, rows, bf16):
-    """ms per call of each kernel, its plain version, and the same chain as
-    F.linear calls (cuBLAS) in the same precision; CUDA events."""
+    """ms per call of each kernel and of the same chain as F.linear calls
+    (cuBLAS, a yardstick) in the same precision, replayed from a CUDA graph
+    (GRAPH_CALLS calls per graph: the card's time) and issued by the host
+    (CUDA events over back-to-back calls: the wrapper's host cost
+    included, "_host"), and of the plain versions, host-issued.  The
+    cuBLAS backward replayed is its forward + autograd backward graph less
+    its forward graph (a backward captures only beside its forward)."""
     dims, x, ws, bs, g = chain_inputs(name, rows)
+    fwd = lambda *_: fused_mlp.chain_fwd(x, ws, bs, "swish", bf16)
+    bwd = lambda *_: fused_mlp.chain_bwd(x, ws, bs, g, "swish", bf16)
     t = {
-        "fwd": cuda_ms(lambda: fused_mlp.chain_fwd(x, ws, bs, "swish", bf16), 200, 20),
-        "bwd": cuda_ms(lambda: fused_mlp.chain_bwd(x, ws, bs, g, "swish", bf16), 200, 20),
+        "fwd": probe.graph_us(fwd, GRAPH_CALLS) / 1e3,
+        "bwd": probe.graph_us(bwd, GRAPH_CALLS) / 1e3,
+        "fwd_host": cuda_ms(fwd, 200, 20),
+        "bwd_host": cuda_ms(bwd, 200, 20),
         "plain_fwd": cuda_ms(lambda: fused_mlp.chain_fwd_plain(x, ws, bs, "swish", bf16), 50, 5),
         "plain_bwd": cuda_ms(lambda: fused_mlp.chain_bwd_plain(x, ws, bs, g, "swish", bf16),
                              50, 5),
@@ -581,6 +594,7 @@ def time_chain(name, rows, bf16):
     dt = torch.bfloat16 if bf16 else torch.float32
     wl = [w.t().contiguous().to(dt).requires_grad_() for w in ws]
     bl = [b.to(dt).requires_grad_() for b in bs]
+    xl, gl = x.to(dt).requires_grad_(), g.to(dt)
 
     def linear_chain(h):
         for i, (w, b) in enumerate(zip(wl, bl)):
@@ -589,12 +603,18 @@ def time_chain(name, rows, bf16):
                 h = F.silu(h)
         return h
 
-    with torch.no_grad():
-        t["cublas_fwd"] = cuda_ms(lambda: linear_chain(x.to(dt)), 200, 20)
-    xl = x.to(dt).requires_grad_()
+    def cublas_fwd(*_):
+        with torch.no_grad():
+            return linear_chain(xl)
+
+    def cublas_fwd_bwd(*_):
+        return torch.autograd.grad(linear_chain(xl), [xl, *wl, *bl], gl)
+
+    t["cublas_fwd"] = probe.graph_us(cublas_fwd, GRAPH_CALLS) / 1e3
+    t["cublas_bwd"] = probe.graph_us(cublas_fwd_bwd, GRAPH_CALLS) / 1e3 - t["cublas_fwd"]
+    t["cublas_fwd_host"] = cuda_ms(cublas_fwd, 200, 20)
     y = linear_chain(xl)
-    gl = g.to(dt)
-    t["cublas_bwd"] = cuda_ms(
+    t["cublas_bwd_host"] = cuda_ms(
         lambda: torch.autograd.grad(y, [xl, *wl, *bl], gl, retain_graph=True), 200, 20)
     return t
 
@@ -882,6 +902,13 @@ def main():
                       f"{r['max_mean_rel_err']:.3e}, {r['fraction_of_tolerance']:.3f} of the "
                       f"tolerance")
 
+    fused_plans = {}
+    for name, rows in CHAIN_SHAPES:
+        for kind in ("fwd", "bwd"):
+            fused_plans[kind, name, rows] = {k: v for k, v in fused_mlp.card_plan(
+                tuple(CHAINS[name]), rows, device, kind == "bwd").items() if k != "scratch"}
+            print(f"launch fused_mlp_{kind} {name}@{rows} bf16: {fused_plans[kind, name, rows]}")
+
     # -- main path 2: PPO on ant, the published recipe at full width ---------------
     phase("main path: PPO")
     p = recipe()
@@ -917,10 +944,13 @@ def main():
                 bounds[kind, name, rows, mode] = b = chain_bound(
                     CHAINS[name], rows, mode == "bf16", kind == "bwd")
                 print(f"timing {tag}: fused_mlp_{kind} {name}@{rows} {mode}: kernel "
-                      f"{t[kind]:.4f} ms, plain {t['plain_' + kind]:.4f} ms, F.linear chain "
-                      f"(cuBLAS) {t['cublas_' + kind]:.4f} ms; bound {b[0]:.5f} ms by {b[1]} "
-                      f"({b[2]:.4g} ops, {b[3]} bytes)")
-    # device ms per training step in each kernel, bf16 (the main path's mode)
+                      f"{t[kind]:.4f} ms graph-replayed ({t[kind + '_host']:.4f} host-issued), "
+                      f"plain {t['plain_' + kind]:.4f} ms, F.linear chain (cuBLAS) "
+                      f"{t['cublas_' + kind]:.4f} ms graph-replayed "
+                      f"({t['cublas_' + kind + '_host']:.4f} host-issued); bound {b[0]:.5f} ms by "
+                      f"{b[1]} ({b[2]:.4g} ops, {b[3]} bytes)")
+    # device ms per training step in each kernel, bf16 (the main path's mode),
+    # from the graph-replayed times
     n_rollout, n_sgd, _ = launch_plan(p)
     def per_training_step(v):
         return {
@@ -970,18 +1000,26 @@ def main():
             "shape": "value chain 87-256x5-1 at 5120 rows, bf16; by_shape has every "
                      "chain of both PPO paths (87-wide v1 ant, 27-wide v2 ant)",
             "ms": times[main][kind],
+            "ms_host_issued": times[main][kind + "_host"],
+            "ms_clock": f"replayed from a CUDA graph of {GRAPH_CALLS} calls; ms_host_issued: "
+                        "CUDA events over 200 back-to-back wrapper calls",
             "plain_ms": times[main]["plain_" + kind],
             "bound_ms": b[0],
             "bound_by": b[1],
             "library_ms": None,
             "cublas_chain_ms": times[main]["cublas_" + kind],
+            "cublas_chain_ms_host_issued": times[main]["cublas_" + kind + "_host"],
             "ms_per_training_step": per_step[kind],
             "ms_per_training_step_v2": per_step_v2[kind],
+            "launch": fused_plans[kind, "value", 5120],
             "by_shape": [
                 {"chain": c, "rows": r, "mode": m, "ms": times[c, r, m][kind],
+                 "ms_host_issued": times[c, r, m][kind + "_host"],
                  "plain_ms": times[c, r, m]["plain_" + kind],
                  "cublas_chain_ms": times[c, r, m]["cublas_" + kind],
+                 "cublas_chain_ms_host_issued": times[c, r, m]["cublas_" + kind + "_host"],
                  "bound_ms": bounds[kind, c, r, m][0], "bound_by": bounds[kind, c, r, m][1],
+                 **({"launch": fused_plans[kind, c, r]} if m == "bf16" else {}),
                  **checks[c, r, m][kind]}
                 for (c, r, m) in times
             ],
