@@ -28,15 +28,24 @@ NVCC_FLAGS = [
 ]
 
 
-def nvcc() -> str:
-    found = shutil.which("nvcc")
+def toolkit(name: str) -> str:
+    """The path of a CUDA toolkit program (nvcc, cuobjdump)."""
+    found = shutil.which(name)
     if found:
         return found
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
+    path = os.path.join(home, "bin", name)
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build brax_torch/csrc")
+        raise RuntimeError(f"{name} not found: the CUDA toolkit is needed to build brax_torch/csrc")
     return path
+
+
+def sass_count(library: Path, opcode: str) -> int:
+    """How many SASS instructions of `opcode` (e.g. HGMMA) a built library
+    holds, by cuobjdump --dump-sass."""
+    out = subprocess.run([toolkit("cuobjdump"), "--dump-sass", str(library)],
+                         capture_output=True, text=True, check=True).stdout
+    return sum(opcode in line for line in out.splitlines())
 
 
 def source_flags(source: Path) -> list:
@@ -65,8 +74,8 @@ def build(*sources: Path) -> Dict[Path, Path]:
     for src in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, *source_flags(src), "-o", tmp, str(src)],
-                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        cmd = [toolkit("nvcc"), *NVCC_FLAGS, *source_flags(src), "-o", tmp, str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         procs.append((src, tmp, proc))
     errors = []
     for src, tmp, proc in procs:

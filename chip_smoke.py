@@ -3,8 +3,10 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds brax_torch/csrc/pbd_step.cu with nvcc (sm_90a) and prints ptxas's
-   register and spill report;
+2. builds brax_torch/csrc/pbd_step.cu with nvcc (sm_90a) for the v1 ant's
+   System (its scene header in front, brax_torch.sim.kernels.kernel_source)
+   and prints ptxas's register and spill report and the launch (lanes per
+   env, envs per block, resident blocks per SM, waves);
 3. holds the kernel against its plain-torch twin at the main path's shapes:
    ant at 4096 envs, from a contact-rich state (10 twin steps after reset).
    Every output (pos, rot, vel, ang and the contact vel/ang impulses) is
@@ -14,7 +16,9 @@
 4. drives the main path: envs.create("ant", batch_size=4096), reset, 200
    env.step calls with random actions, and checks that the kernel ran once
    per step and that every observation is finite;
-5. times the kernel, the twin and env.step;
+5. times the kernel at 128, 2048 and 4096 envs (PPO's eval, PPO's
+   training batch, the env.step path), replayed from a CUDA graph and
+   issued by the host, beside its bound; the twin and env.step;
 6. holds the fused MLP kernels (brax_torch/csrc/fused_mlp.cu, forward and
    backward) against their plain versions at the PPO ant recipe's shapes,
    with v1 ant's 87-wide and v2 ant's 27-wide observation, in bf16 and f32
@@ -54,9 +58,10 @@
    profiles one training step each way;
 15. reads the launch-overhead probe's counts, set to 0 before step 3, to
    show that no env or PPO path ran its kernels; holds them
-   (brax_torch/csrc/probe.cu) against their plain versions, then drives the
-   probe (brax_torch.tools.probe_overhead.measure), which times every
-   launch both issued by the host and replayed from a CUDA graph;
+   (brax_torch/csrc/probe.cu) against their plain versions, counts the
+   HGMMA (wgmma) instructions in the dot chain's build (cuobjdump), then
+   drives the probe (brax_torch.tools.probe_overhead.measure), which times
+   every launch both issued by the host and replayed from a CUDA graph;
 16. prints one JSON line listing every kernel and, last,
    {"ok": true, "device": {...}}.
 
@@ -147,6 +152,8 @@ V2_ENV_STEPS = 50
 V2_LOWER = 0.1
 PPO_STEPS = 3
 PPO_EVAL_ENVS = 128
+# the PBD kernel's batch sizes: PPO's eval, PPO's training batch, env.step's
+PBD_TIMING_ENVS = (PPO_EVAL_ENVS, 2048, N_ENVS)
 PROFILE_EPISODE = 10
 DEVICE = torch.device("cuda")
 
@@ -277,6 +284,46 @@ def max_errors(sys_, qp, act, gen):
             raise AssertionError(f"kernel disagrees with its plain twin in envs "
                                  f"{idx[~decided].tolist()}, beyond rounding: {errs}")
     return errs, inside_errs, outliers
+
+
+def pbd_launch_report(sys_, batches):
+    """The PBD kernel's launch for a System: ptxas's figures, lanes per env,
+    envs and threads per block, resident blocks per SM (the CUDA runtime's
+    occupancy) and, per batch size, blocks, SMs used and waves."""
+    p = kernels.plan(sys_)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    resident = kernels.resident_blocks(sys_)
+    rec = {**ptxas_figures(kernels.ptxas_report(sys_)), "lanes": p.lanes,
+           "envs_per_block": p.envs_per_block, "threads_per_block": p.threads,
+           "resident_blocks_per_sm": resident}
+    for n in batches:
+        blocks, _ = kernels.launch_geometry(p, n)
+        rec[f"at_{n}"] = {"blocks": blocks, "sms_used": min(blocks, sms),
+                          "waves": blocks / (sms * resident)}
+    print(f"pbd_step launch: {rec['registers']} registers, stack {rec['stack_bytes']} B, spills "
+          f"{rec['spill_store_bytes']}/{rec['spill_load_bytes']} B; {p.lanes} lanes per env, "
+          f"{p.envs_per_block} envs ({p.threads} threads) per block, {resident} blocks resident "
+          f"per SM; " + "; ".join(f"{n} envs: {r['blocks']} blocks on {r['sms_used']} SMs, "
+                                  f"{r['waves']:.2f} waves"
+                                  for n, r in ((n, rec[f"at_{n}"]) for n in batches)))
+    return rec
+
+
+def pbd_timings(tag, sys_, qp, act, bound_per_env):
+    """The PBD kernel at each of PBD_TIMING_ENVS envs (the first n envs of
+    the contact-rich state): ms per launch replayed from a CUDA graph of
+    GRAPH_CALLS launches and issued by the host, and its bound."""
+    rec = {}
+    for n in PBD_TIMING_ENVS:
+        ins = tuple(t[:n].contiguous() for t in (qp.pos, qp.rot, qp.vel, qp.ang, act))
+        new = lambda i: kernels.pbd_step_launch(sys_, *ins)
+        r = {"graph": probe.graph_us(new, GRAPH_CALLS) / 1e3,
+             "host": probe.host_us(new, GRAPH_CALLS) / 1e3,
+             "bound_ms": n * bound_per_env}
+        rec[n] = r
+        print(f"timing {tag}: pbd_step at {n} envs: {r['graph']:.5f} ms graph-replayed, "
+              f"{r['host']:.5f} ms host-issued; bound {r['bound_ms']:.5f} ms")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -784,20 +831,28 @@ def main():
     print(name_limit)
     tag = f"[{name_limit}]"
 
-    # -- build: the three sources, one nvcc each, in parallel ---------------------
+    # -- build: every source, one nvcc each, in parallel ---------------------------
     t0 = time.perf_counter()
+    env = envs.create("ant", episode_length=1000, auto_reset=True, batch_size=N_ENVS)
+    sys_ = env.sys
     gen_env = v2_envs.create("ant", episode_length=1000, batch_size=N_ENVS)
     gen_sys = gen_env.sys
     scenes = [gen_sys] + [v2_envs.get_environment(name).sys for name in V2_ENVS]
-    built = cuda_build.build(kernels.SOURCE, fused_mlp.SOURCE, probe.SOURCE,
+    built = cuda_build.build(kernels.kernel_source(sys_), fused_mlp.SOURCE, probe.SOURCE,
                              *(gen_kernels.kernel_source(s) for s in scenes))
     print(f"build: {', '.join(p.name for p in built.values())} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a, in parallel)")
-    print(kernels.ptxas_report().strip())
+    print(kernels.ptxas_report(sys_).strip())
     print(fused_mlp.ptxas_report().strip())
     print(probe.ptxas_report().strip())
     for scene in scenes:
         print(gen_kernels.ptxas_report(scene).strip())
+    pbd_launch = pbd_launch_report(sys_, PBD_TIMING_ENVS)
+    hgmma = cuda_build.sass_count(built[probe.SOURCE], "HGMMA")
+    print(f"probe dot_chain build: {hgmma} HGMMA (wgmma) instructions in "
+          f"{built[probe.SOURCE].name} (cuobjdump --dump-sass)")
+    if not hgmma:
+        raise AssertionError("the dot chain's build holds no HGMMA instruction")
     gen_batches = (N_ENVS, recipe()["num_envs"])
     gen_launches_by_scene = {name: gen_launch_report(name, scene, gen_batches)
                              for name, scene in zip(("ant",) + V2_ENVS, scenes)}
@@ -808,8 +863,6 @@ def main():
 
     # -- kernel against its plain twin at 4096 envs, in contact ---------------
     phase("pbd_step parity")
-    env = envs.create("ant", episode_length=1000, auto_reset=True, batch_size=N_ENVS)
-    sys_ = env.sys
     gen = torch.Generator(device=device).manual_seed(0)
     qp = env.reset(gen).qp
     for _ in range(10):
@@ -824,7 +877,7 @@ def main():
     phase("main path: env.step")
     state = env.reset(torch.Generator(device=device).manual_seed(1))
     act_gen = torch.Generator(device=device).manual_seed(2)
-    kernels.pbd_step_soa.launches = 0
+    kernels.pbd_step_launch.launches = 0
     for i in range(MAIN_STEPS):
         if i == 20:
             torch.cuda.synchronize()
@@ -833,7 +886,7 @@ def main():
         state = env.step(state, act)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / (MAIN_STEPS - 20)
-    launches = kernels.pbd_step_soa.launches
+    launches = kernels.pbd_step_launch.launches
     if launches != MAIN_STEPS:
         raise AssertionError(f"{MAIN_STEPS} env steps made {launches} kernel launches")
     if not bool(torch.isfinite(state.obs).all()):
@@ -845,9 +898,6 @@ def main():
 
     # -- timings ------------------------------------------------------------
     phase("pbd_step timings")
-    soa = lambda x: x.permute(1, 2, 0).contiguous()
-    ins = (soa(qp.pos), soa(qp.rot), soa(qp.vel), soa(qp.ang), act.t().contiguous())
-    kernel_ms = cuda_ms(lambda: kernels.pbd_step_soa(sys_, *ins), reps=200, warmup=20)
     plain_ms = cuda_ms(lambda: kernels.pbd_step_plain(sys_, qp, act), reps=10, warmup=2)
     counter = OpCount()
     with counter:
@@ -860,8 +910,9 @@ def main():
     ops_ms = counter.ops / FP32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    print(f"timing {tag}: pbd_step kernel {kernel_ms:.4f} ms/launch at {N_ENVS} envs "
-          f"(CUDA events, 200 launches)")
+    # the twin's operations and the bytes scale with the envs: the bound per env
+    pbd_by_envs = pbd_timings(tag, sys_, qp, act, bound_ms / N_ENVS)
+    kernel_ms = pbd_by_envs[N_ENVS]["graph"]
     print(f"timing {tag}: plain twin {plain_ms:.3f} ms/step at {N_ENVS} envs")
     print(f"timing {tag}: env.step {step_s * 1e3:.4f} ms/step, "
           f"{N_ENVS / step_s:.1f} env-steps/s (host clock, {MAIN_STEPS - 20} steps)")
@@ -915,7 +966,7 @@ def main():
     want = dict(zip(("fused_mlp_fwd", "fused_mlp_bwd", "pbd_step"),
                     expected_launches(p, PPO_STEPS)))
     recorder = InitRecorder()
-    kernels.pbd_step_soa.launches = 0
+    kernels.pbd_step_launch.launches = 0
     fused_mlp.chain_fwd.launches = fused_mlp.chain_bwd.launches = 0
     t0 = time.perf_counter()
     _, (_, policy_params), ppo_metrics = run_ppo(True, PPO_STEPS,
@@ -924,7 +975,7 @@ def main():
     ppo_s = time.perf_counter() - t0
     ppo_launches = {"fused_mlp_fwd": fused_mlp.chain_fwd.launches,
                     "fused_mlp_bwd": fused_mlp.chain_bwd.launches,
-                    "pbd_step": kernels.pbd_step_soa.launches}
+                    "pbd_step": kernels.pbd_step_launch.launches}
     moved = check_ppo_run("PPO", ppo_metrics, recorder, policy_params, ppo_launches, want)
     print(f"main path PPO: {PPO_STEPS} training steps of ant "
           f"(num_envs {p['num_envs']}, batch {p['batch_size']} x {p['num_minibatches']} "
@@ -1233,6 +1284,17 @@ def main():
     print(f"timing {tag}: probe plain versions: dot_chain [5120, 256] k={k_main} "
           f"{chain_plain_ms:.4f} ms, x + 1 {copy_plain_ms:.4f} ms; bounds: copy "
           f"{copy_bytes / HBM_BYTES_PER_S * 1e3:.2e} ms by bytes, chains {probe_bound}")
+    chain_times = {}
+    for rows in probe.CHAIN_ROWS:
+        for k in probe.CHAIN_KS:
+            key = f"dotchain{k}_us" if rows == 512 else f"dotchain{rows}_{k}_us"
+            t = chain_times[rows, k] = {
+                "graph": probe_times[key]["graph"] / 1e3, "host": probe_times[key]["host"] / 1e3,
+                "cublas_graph": probe_times["cublas_" + key]["graph"] / 1e3,
+                "bound_ms": probe_bound[rows, k][0]}
+            print(f"timing {tag}: dot_chain [{rows}, 256] k={k}: {t['graph']:.5f} ms "
+                  f"graph-replayed ({t['host']:.5f} host-issued), cuBLAS chain "
+                  f"{t['cublas_graph']:.5f} ms graph-replayed, bound {t['bound_ms']:.5f} ms")
 
     print(json.dumps({"ppo": {
         "env_steps_per_s_fused_on": sps["on"], "env_steps_per_s_fused_off": sps["off"],
@@ -1262,10 +1324,15 @@ def main():
         "outlier_envs_decided_by_rounding": outliers,
         "max_outliers": MAX_OUTLIERS,
         "ms": kernel_ms,
+        "ms_host_issued": pbd_by_envs[N_ENVS]["host"],
+        "ms_timing": f"graph-replayed ({GRAPH_CALLS} launches per CUDA graph) at {N_ENVS} envs",
+        "ms_by_envs": pbd_by_envs,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "design": "per-System source; an env over lanes of a warp, state in registers",
+        "launch": pbd_launch,
         "env_steps_per_s": N_ENVS / step_s,
         "launches_ppo": ppo_launches["pbd_step"],
         "card": name_limit,
@@ -1373,6 +1440,9 @@ def main():
             "bound_by": probe_bound[5120, k_main][1],
             "library_ms": None,
             "cublas_chain_ms": probe_times[f"cublas_dotchain5120_{k_main}_us"]["graph"] / 1e3,
+            "hgmma_instructions": hgmma,
+            "design": "wgmma m64n128k16 from shared memory, two warpgroups per 64-row tile",
+            "ms_by_shape": {f"[{r}, 256] k={k}": t for (r, k), t in chain_times.items()},
             "us_per_launch": {k: v for k, v in probe_times.items() if "dotchain" in k},
             "bound_ms_by_shape": {f"[{r}, 256] k={k}": b[0] for (r, k), b in probe_bound.items()},
             "fused_mlp_fwd_value_5120_us": probe_times["fwd1_us"],

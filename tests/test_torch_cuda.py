@@ -43,10 +43,10 @@ def _contact_state(device, n=256, steps=10):
 
 def test_kernel_matches_twin_in_contact(cuda):
     env, qp, act = _contact_state(cuda)
-    before = kernels.pbd_step_soa.launches
+    before = kernels.pbd_step_launch.launches
     out, info = kernels.pbd_step(env.sys, qp, act)
     torch.cuda.synchronize()
-    assert kernels.pbd_step_soa.launches == before + 1
+    assert kernels.pbd_step_launch.launches == before + 1
     ref, info_ref = kernels.pbd_step_plain(env.sys, qp, act)
     torch.testing.assert_close(out.pos, ref.pos, rtol=0, atol=1e-4)
     torch.testing.assert_close(out.rot, ref.rot, rtol=0, atol=1e-4)
@@ -67,6 +67,65 @@ def test_kernel_rejects_cpu_mixed_inputs(cuda):
     env, qp, act = _contact_state(cuda, n=32, steps=0)
     with pytest.raises(ValueError, match="one CUDA device"):
         kernels.pbd_step(env.sys, qp, act.cpu())
+
+
+def _rounding_rule_holds(sys, qp, act, device):
+    """chip_smoke.py's rule: every output within TOLERANCE of the twin, but
+    for at most MAX_OUTLIERS envs, each one whose result float rounding
+    decides (chip_smoke.max_errors raises otherwise)."""
+    import chip_smoke
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    _, _, outliers = chip_smoke.max_errors(sys, qp, act, gen)
+    assert outliers <= chip_smoke.MAX_OUTLIERS
+
+
+@pytest.mark.parametrize("n", [1, 128, 2048, 4097])
+def test_generated_kernel_matches_twin_by_batch(cuda, n):
+    env, qp, act = _contact_state(cuda, n=n)
+    before = kernels.pbd_step_launch.launches
+    _rounding_rule_holds(env.sys, qp, act, cuda)
+    assert kernels.pbd_step_launch.launches == before + 1
+
+
+def test_generated_kernel_matches_twin_on_two_legged_ant(cuda):
+    from tests.test_torch_pbd_launch import Scene, scene_state, two_legged_ant_config
+
+    env = Scene(two_legged_ant_config(), batch_size=1000, device=cuda)
+    assert kernels.plan(env.sys).lanes == 8
+    qp, act = scene_state(env, 1000, steps=10, seed=1, device=cuda)
+    _rounding_rule_holds(env.sys, qp, act, cuda)
+
+
+def test_generated_kernel_gives_the_same_bits_twice(cuda):
+    env, qp, act = _contact_state(cuda, n=2048)
+    a, info_a = kernels.pbd_step(env.sys, qp, act)
+    b, info_b = kernels.pbd_step(env.sys, qp, act)
+    for x, y in zip((a.pos, a.rot, a.vel, a.ang, info_a.contact.vel, info_a.contact.ang),
+                    (b.pos, b.rot, b.vel, b.ang, info_b.contact.vel, info_b.contact.ang)):
+        assert torch.equal(x, y)
+
+
+def test_generated_kernel_replays_from_a_cuda_graph(cuda):
+    """A launch captured in a CUDA graph and replayed gives the eager bits."""
+    env, qp, act = _contact_state(cuda, n=512)
+    want, info_want = kernels.pbd_step(env.sys, qp, act)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernels.pbd_step(env.sys, qp, act)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, info_got = kernels.pbd_step(env.sys, qp, act)
+    for t in (got.pos, got.vel, info_got.contact.ang):
+        t.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    for x, y in zip((want.pos, want.rot, want.vel, want.ang, info_want.contact.vel),
+                    (got.pos, got.rot, got.vel, got.ang, info_got.contact.vel)):
+        assert torch.equal(x, y)
+    assert torch.equal(info_want.contact.ang, info_got.contact.ang)
 
 
 # ---------------------------------------------------------------------------
@@ -458,7 +517,8 @@ def test_gen_kernel_rejects_blocks_past_its_shared_memory(cuda):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("rows,k", [(64, 3), (512, 6), (5120, 24)])
+@pytest.mark.parametrize("rows,k", [(64, 3), (512, 6), (5120, 24), (1, 1), (100, 6),
+                                    (5121, 24), (512, 1)])
 def test_probe_dot_chain_matches_plain(cuda, rows, k):
     """bf16 products with f32 sums, summed in another order than the plain
     version's: max |err| <= 1e-2 max |plain| (the fused MLP's bf16 rule)."""

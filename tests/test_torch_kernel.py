@@ -70,10 +70,10 @@ def test_twin_matches_pallas_kernel_math(states):
 
 def test_wrapper_runs_the_twin_on_cpu(states):
     env, qp, act = states
-    before = kernels.pbd_step_soa.launches
+    before = kernels.pbd_step_launch.launches
     qp_out, info = kernels.pbd_step(env.sys, qp, act)
     qp_ref, info_ref = kernels.pbd_step_plain(env.sys, qp, act)
-    assert kernels.pbd_step_soa.launches == before
+    assert kernels.pbd_step_launch.launches == before
     torch.testing.assert_close(qp_out.pos, qp_ref.pos, rtol=0, atol=0)
     torch.testing.assert_close(info.contact.ang, info_ref.contact.ang, rtol=0, atol=0)
     # as the JAX kernel path: zero joint/actuator info, one placeholder contact
