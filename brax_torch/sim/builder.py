@@ -2,9 +2,11 @@
 
 Counterpart of `brax_tpu/sim/builder.py`.  The build math runs once in
 float64 numpy and is cast to float32, then every table moves to `device` as a
-tensor; index tables stay host numpy.  This slice builds what ant uses: PBD
-dynamics, revolute joints, torque actuators and one-way capsule-plane
-contacts.  Any other feature raises NotImplementedError naming it.
+tensor; index tables stay host numpy.  The port builds PBD dynamics, revolute
+joints, spherical joints (a PBD scene whose joints mix dofs, or has a 2-dof
+joint, is "sphericalized": each joint is padded to 3 dofs with (0, 0)
+limits), torque actuators and one-way capsule-plane contacts.  Any other
+feature raises NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -84,6 +86,7 @@ def build(config: cfg.Config, device="cuda") -> Tuple[System, BuildArtifacts]:
     inv_inertia = 1.0 / np.array([b.inertia for b in config.bodies], dtype=np.float64)
     active = np.array([0.0 if b.frozen.all else 1.0 for b in config.bodies])
 
+    # counted before sphericalization pads the joints
     num_joint_dof = sum(len(j.angle_limits) for j in config.joints)
     joint_groups, joint_order, group_of_joint, index_in_group = _build_joints(
         config, body_index, mass, inv_inertia, f32
@@ -160,14 +163,41 @@ def _joint_frames(j: cfg.Joint):
 
 
 def _build_joints(config, body_index, mass, inv_inertia, f32):
-    """One revolute group of every joint (all PBD joints must have 1 dof)."""
+    """Groups the joints by dof, as `brax_tpu/sim/builder.py` does: one
+    revolute group of 1-dof joints, or, when the dofs are mixed or a joint
+    has 2, one spherical group of every joint padded to 3 dofs with (0, 0)
+    limits (the padding is written into `config`, the validated copy, as
+    `brax_tpu/sim/builder.py` writes it into its own)."""
     dofs = {len(j.angle_limits) for j in config.joints}
-    if dofs - {1}:
-        raise _not_ported("joints with 2 or 3 dof (spherical)")
-    joints = list(config.joints)
-    if not joints:
-        return [], [], {}, {}
+    sphericalize = len(dofs) > 1 or 2 in dofs
+    by_dof: Dict[int, Tuple[list, list]] = {}
+    for joint in config.joints:
+        free = len(joint.angle_limits)
+        if sphericalize:
+            joint.angle_limits = list(joint.angle_limits) + [(0.0, 0.0)] * (3 - free)
+        joints, free_dofs = by_dof.setdefault(len(joint.angle_limits), ([], []))
+        joints.append(joint)
+        free_dofs.append(free)
 
+    groups, joint_order, group_of_joint, index_in_group = [], [], {}, {}
+    for dof, (joints, free_dofs) in sorted(by_dof.items()):
+        if dof == 1:
+            kind, free = "revolute", None
+        elif dof == 3:
+            kind, free = "spherical", tuple(free_dofs)
+        else:
+            raise RuntimeError(f"invalid number of joint limits: {dof}")
+        gi = len(groups)
+        groups.append(_joint_group(kind, dof, joints, free, config, body_index, mass,
+                                   inv_inertia, f32))
+        for k, j in enumerate(joints):
+            joint_order.append(j.name)
+            group_of_joint[j.name] = gi
+            index_in_group[j.name] = k
+    return groups, joint_order, group_of_joint, index_in_group
+
+
+def _joint_group(kind, dof, joints, free_dofs, config, body_index, mass, inv_inertia, f32):
     parent = np.array([body_index[j.parent] for j in joints], dtype=np.int32)
     child = np.array([body_index[j.child] for j in joints], dtype=np.int32)
     axis_cp = [_joint_frames(j) for j in joints]
@@ -184,12 +214,12 @@ def _build_joints(config, body_index, mass, inv_inertia, f32):
     )
     scale_pos = config.solver_scale_pos or 0.6
     scale_ang = config.solver_scale_ang or 0.2
-    group = joints_mod.JointGroup(
-        kind="revolute",
-        dof=1,
+    return joints_mod.JointGroup(
+        kind=kind,
+        dof=dof,
         parent=parent,
         child=child,
-        free_dofs=None,
+        free_dofs=free_dofs,
         off_p=f32([j.parent_offset for j in joints]),
         off_c=f32([j.child_offset for j in joints]),
         limit=f32(limit),
@@ -206,10 +236,6 @@ def _build_joints(config, body_index, mass, inv_inertia, f32):
         spring_damping=f32(spring_damping),
         limit_strength=f32(limit_strength),
     )
-    joint_order = [j.name for j in joints]
-    group_of_joint = {j.name: 0 for j in joints}
-    index_in_group = {j.name: k for k, j in enumerate(joints)}
-    return [group], joint_order, group_of_joint, index_in_group
 
 
 # ---------------------------------------------------------------------------
@@ -218,7 +244,8 @@ def _build_joints(config, body_index, mass, inv_inertia, f32):
 
 
 def _build_actuators(config, joint_groups, group_of_joint, index_in_group, f32):
-    """Act-index packing: each actuator takes its joint's dofs in order."""
+    """Act-index packing: each actuator takes its joint's free dofs in order,
+    with -1 in a sphericalized joint's padded dofs."""
     actuators: Dict[tuple, list] = {}
     current_index = 0
     for actuator in config.actuators:
@@ -229,8 +256,10 @@ def _build_actuators(config, joint_groups, group_of_joint, index_in_group, f32):
         gi = group_of_joint[actuator.joint]
         g = joint_groups[gi]
         ji = index_in_group[actuator.joint]
-        act_index = tuple(range(current_index, current_index + g.dof))
-        current_index += g.dof
+        free = g.dof if g.free_dofs is None else g.free_dofs[ji]
+        act_index = tuple(i if i - current_index < free else -1
+                          for i in range(current_index, current_index + g.dof))
+        current_index += free
         key = (actuator.kind, g.dof, gi)
         actuators.setdefault(key, []).append((actuator, ji, act_index))
 

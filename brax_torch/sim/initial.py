@@ -197,7 +197,7 @@ def _min_z(pos: Tensor, rot: Tensor, body: cfg.Body) -> Tensor:
                 result = torch.minimum(result, z)
         elif col.box is not None:
             raise NotImplementedError(
-                "box colliders are not ported yet (see ROADMAP.md, queue A item 10)"
+                "box colliders are not ported yet (see ROADMAP.md, queue A item 5)"
             )
         else:
             result = torch.clamp(result, max=0.0)

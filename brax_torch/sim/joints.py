@@ -3,8 +3,9 @@
 Counterpart of `brax_tpu/sim/joints.py`.  Joints of one kind form a
 `JointGroup` whose tables have a leading joint axis (nj, ...); they broadcast
 against state gathered to (N, nj, ...) and scatter back onto the body axis
-with one `index_add_`.  This slice ports the PBD revolute joint; spherical and
-spring joints are not ported yet.
+with one `index_add_`.  The PBD revolute and spherical joints are ported (a
+spherical joint's three Euler rows also hold the 1- and 2-dof joints that
+`builder.build` pads to 3 dofs); spring joints are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from brax_torch.sim.types import DP, DQ, QP, Tensor, index
 class JointGroup:
     """A batch of same-kind joints; tensors have a leading (nj,) axis."""
 
-    kind: str  # only 'revolute' is ported
+    kind: str  # 'revolute' | 'spherical' (the spring kinds are not ported)
     dof: int
     parent: np.ndarray  # (nj,) body indices
     child: np.ndarray
@@ -109,23 +110,44 @@ def _rotate_frame(axes: Tensor, rot: Tensor) -> Tensor:
     return maths.rotate(axes, rot[..., None, :])
 
 
-def _require_revolute(g: JointGroup):
-    if g.kind != "revolute":
+def _require_pbd(g: JointGroup):
+    if g.kind not in ("revolute", "spherical"):
         raise NotImplementedError(
-            f"{g.kind} joints are not ported yet (see ROADMAP.md, queue B item 1)"
+            f"{g.kind} joints are not ported yet (see ROADMAP.md, queue A item 6)"
         )
 
 
+def _normalized(v: Tensor, eps: float) -> Tensor:
+    return v / (eps + maths.safe_norm(v)[..., None])
+
+
 def axis_angle(g: JointGroup, qp_p: QP, qp_c: QP):
-    """Joint axes and angles: (..., nj, dof, 3), (..., nj, dof)."""
-    _require_revolute(g)
+    """Joint axes and angles: (..., nj, dof, 3), (..., nj, dof).
+
+    A spherical joint's are its x-y'-z'' Euler angles about the line of
+    nodes (psi, theta, phi) and the axes (parent x, child y, child z).
+    """
+    _require_pbd(g)
     axis_p_r = _rotate_frame(g.axis_p, qp_p.rot)
     axis_c_r = _rotate_frame(g.axis_c, qp_c.rot)
     axis_1_p = axis_p_r[..., 0, :]
-    ref_p = axis_p_r[..., 2, :]
-    ref_c = axis_c_r[..., 2, :]
-    psi = maths.signed_angle(axis_1_p, ref_p, ref_c)
-    return axis_1_p[..., None, :], psi[..., None]
+    if g.kind == "revolute":
+        ref_p = axis_p_r[..., 2, :]
+        ref_c = axis_c_r[..., 2, :]
+        psi = maths.signed_angle(axis_1_p, ref_p, ref_c)
+        return axis_1_p[..., None, :], psi[..., None]
+
+    axis_2_p = axis_p_r[..., 1, :]
+    axis_1_c, axis_2_c, axis_3_c = axis_c_r[..., 0, :], axis_c_r[..., 1, :], axis_c_r[..., 2, :]
+    line_of_nodes = _normalized(maths.cross(axis_3_c, axis_1_p), 1e-10)
+    psi = maths.signed_angle(axis_1_p, axis_2_p, line_of_nodes)
+    in_xz = dot1(axis_1_p, axis_1_c) * axis_1_c + dot1(axis_1_p, axis_2_c) * axis_2_c
+    in_xz = _normalized(in_xz, 1e-10)
+    theta = (maths.safe_arccos(torch.clamp(vdot(in_xz, axis_1_p), -1, 1))
+             * torch.sign(vdot(axis_1_p, axis_3_c)))
+    phi = maths.signed_angle(-axis_3_c, axis_2_c, line_of_nodes)
+    axes = torch.stack([axis_1_p, axis_2_c, axis_3_c], dim=-2)
+    return axes, torch.stack([psi, theta, phi], dim=-1)
 
 
 def angle_vel(g: JointGroup, qp: QP):
@@ -159,8 +181,8 @@ def damp(g: JointGroup, qp: QP, nb: int) -> DP:
 
 
 def pbd_apply(g: JointGroup, qp: QP, nb: int) -> DQ:
-    """Position-based revolute constraint update, scattered onto bodies."""
-    _require_revolute(g)
+    """Position-based joint constraint update, scattered onto bodies."""
+    _require_pbd(g)
     qp_p = qp.take(g.parent)
     qp_c = qp.take(g.child)
 
@@ -170,6 +192,23 @@ def pbd_apply(g: JointGroup, qp: QP, nb: int) -> DQ:
 
     axis_p_r = _rotate_frame(g.axis_p, qp_p.rot)
     axis_c_r = _rotate_frame(g.axis_c, qp_c.rot)
+    rows = (_spherical_rows if g.kind == "spherical" else _revolute_rows)(
+        g, qp_p, qp_c, axis_p_r, axis_c_r)
+    # sum the angle rows first, then add them to the positional update
+    rows_p, rows_c = rows[0]
+    for ap, ac in rows[1:]:
+        rows_p, rows_c = rows_p + ap, rows_c + ac
+    dq_p_rot = dq_p_rot + rows_p
+    dq_c_rot = dq_c_rot + rows_c
+
+    pos = _scatter_add3(dq_p_pos, dq_c_pos, g.parent, g.child, nb)
+    rot = _scatter_add3(dq_p_rot, dq_c_rot, g.parent, g.child, nb)
+    return DQ(pos=pos, rot=rot)
+
+
+def _revolute_rows(g: JointGroup, qp_p: QP, qp_c: QP, axis_p_r: Tensor, axis_c_r: Tensor):
+    """A revolute joint's two angular rows, each (parent, child) quaternion
+    updates: align the hinge axes, then hold the angle inside its limits."""
     axis = axis_p_r[..., 0, :]
     ref_p = axis_p_r[..., 2, :]
     ref_c = axis_c_r[..., 2, :]
@@ -182,13 +221,32 @@ def pbd_apply(g: JointGroup, qp: QP, nb: int) -> DQ:
     fixrot = maths.quat_rot_axis(axis, ph)
     n1 = maths.rotate(ref_p, fixrot)
     dq_2 = maths.cross(n1, ref_c)
+    return [_angle_update(g, qp_p, qp_c, dq_1), _angle_update(g, qp_p, qp_c, dq_2)]
 
-    # sum the angle rows first, then add them to the positional update
-    ap1, ac1 = _angle_update(g, qp_p, qp_c, dq_1)
-    ap2, ac2 = _angle_update(g, qp_p, qp_c, dq_2)
-    dq_p_rot = dq_p_rot + (ap1 + ap2)
-    dq_c_rot = dq_c_rot + (ac1 + ac2)
 
-    pos = _scatter_add3(dq_p_pos, dq_c_pos, g.parent, g.child, nb)
-    rot = _scatter_add3(dq_p_rot, dq_c_rot, g.parent, g.child, nb)
-    return DQ(pos=pos, rot=rot)
+def _spherical_rows(g: JointGroup, qp_p: QP, qp_c: QP, axis_p_r: Tensor, axis_c_r: Tensor):
+    """A spherical joint's three Euler-angle rows, each (parent, child)
+    quaternion updates: each row turns its angle back inside its limits,
+    and only where the angle is outside them (the mask).  A padded dof's
+    (0, 0) limits hold it at 0."""
+    axis_1_p, axis_2_p = axis_p_r[..., 0, :], axis_p_r[..., 1, :]
+    axis_1_c, axis_2_c, axis_3_c = axis_c_r[..., 0, :], axis_c_r[..., 1, :], axis_c_r[..., 2, :]
+    line_of_nodes = _normalized(maths.cross(axis_3_c, axis_1_p), 1e-6)
+    in_xz = dot1(axis_1_p, axis_1_c) * axis_1_c + dot1(axis_1_p, axis_2_c) * axis_2_c
+    in_xz = _normalized(in_xz, 1e-6)
+    axis_2_normal = _normalized(maths.cross(in_xz, axis_1_p), 1e-6)
+    sgn = torch.sign(vdot(axis_1_p, axis_3_c))[..., None]
+    rows = (
+        (axis_1_p, axis_2_p, line_of_nodes),
+        (-axis_2_normal * sgn, axis_1_p, in_xz),
+        (axis_3_c, line_of_nodes, axis_2_c),  # -yc_n_normal == axis_3_c
+    )
+    updates = []
+    for i, (n, n_1, n_2) in enumerate(rows):
+        ph = maths.signed_angle(n, n_1, n_2)
+        lo, hi = g.limit[..., i, 0], g.limit[..., i, 1]
+        mask = torch.where((ph < lo) | (ph > hi), 1.0, 0.0)
+        fixrot = maths.quat_rot_axis(n, torch.clamp(ph, lo, hi))
+        dq_ang = maths.cross(maths.rotate(n_1, fixrot), n_2) * mask[..., None]
+        updates.append(_angle_update(g, qp_p, qp_c, dq_ang))
+    return updates

@@ -15,13 +15,18 @@ topology, the per-body lists the kernel gathers and the constants that
 (`brax_torch/cuda_build.py`, keyed by the text's hash) and ctypes loads.
 `plan(sys)` spreads an env over `lanes` lanes of a warp (a lane per body,
 joint, actuator and contact) and puts `envs_per_block` envs, one warp, in a
-block; the source holds the header to it with static_asserts.
+block; the source holds the header to it with static_asserts.  A System's
+joints are all revolute or all spherical (`builder.build` pads a PBD scene
+with mixed dofs to 3); a spherical scene's header defines PBD_SPHERICAL,
+which compiles the source's spherical joint rows and 3-dof actuators in
+place of the revolute ones.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 from typing import TYPE_CHECKING, Dict, List, Tuple
@@ -41,10 +46,13 @@ if TYPE_CHECKING:
 SOURCE = cuda_build.CSRC / "pbd_step.cu"
 BUILD_DIR = cuda_build.BUILD_DIR
 # guards on the generated size: the scenes the kernel is built and tested for
-MAX_BODIES, MAX_CONTACTS, MAX_ACT = 16, 16, 32
+# (a contact needs a lane of its env's 32 at most)
+MAX_BODIES, MAX_CONTACTS, MAX_ACT = 16, 32, 32
 WARP = 32
 # pack_tables' record sizes, in floats: globals, body, joint, actuator, contact
-G_SIZE, B_SIZE, J_SIZE, A_SIZE, C_SIZE = 9, 14, 29, 1, 6
+G_SIZE, B_SIZE, J_SIZE, A_SIZE, C_SIZE = 9, 14, 33, 1, 6
+# the most dofs of a joint, and so action columns of an actuator
+MAX_DOF = 3
 
 
 # ---------------------------------------------------------------------------
@@ -60,8 +68,12 @@ def unsupported_features(sys: System, n_act: int = 0) -> List[str]:
     if sys.collider_cutoff:
         missing.append("collider_cutoff")
     for g in sys.joint_groups:
-        if g.kind != "revolute":
+        if g.kind not in ("revolute", "spherical"):
             missing.append(f"{g.kind} joints")
+        elif g.kind == "spherical" and g.dof != MAX_DOF:
+            missing.append(f"{g.dof}-dof spherical joints")
+    if len({g.kind for g in sys.joint_groups}) > 1:
+        missing.append("revolute and spherical joints in one System")
     for a in sys.actuator_groups:
         if a.kind != "torque":
             missing.append(f"{a.kind} actuators")
@@ -103,11 +115,12 @@ def pack_tables(sys: System) -> Tuple[np.ndarray, np.ndarray]:
     Layouts: globals (dt, gravity[3], exp(velocity_damping dt),
     exp(angular_damping dt), collide_scale, h, velocity_threshold), then per
     body (mass, inv_inertia[3], pos_mask[3], rot_mask[3], quat_mask[4]),
-    joint (off_p[3], off_c[3], axis_p[9], axis_c[9], lo, hi, damping,
-    scale_pos, scale_ang), actuator (strength) and contact (end[3], radius,
-    friction, elasticity) records in the float table; joint (parent, child),
-    actuator (joint, act column) and contact (group, body a, body b) records
-    in the int table.  Contacts are listed group by group.
+    joint (off_p[3], off_c[3], axis_p[9], axis_c[9], (lo, hi) per dof, padded
+    with zeros to MAX_DOF, damping, scale_pos, scale_ang), actuator (strength)
+    and contact (end[3], radius, friction, elasticity) records in the float
+    table; joint (parent, child), actuator (joint, an action column per dof,
+    -1 for a padded dof and past the joint's dofs) and contact (group, body
+    a, body b) records in the int table.  Contacts are listed group by group.
     """
     f64 = lambda x: np.asarray(x.detach().cpu().numpy() if isinstance(x, Tensor) else x,
                                dtype=np.float64)
@@ -129,15 +142,19 @@ def pack_tables(sys: System) -> Tuple[np.ndarray, np.ndarray]:
         off_p, off_c = f64(g.off_p), f64(g.off_c)
         axis_p, axis_c, limit = f64(g.axis_p), f64(g.axis_c), f64(g.limit)
         damping, sp, sa = f64(g.angular_damping), f64(g.scale_pos), f64(g.scale_ang)
+        limits = np.zeros((g.n, MAX_DOF, 2))
+        limits[:, :g.dof] = limit
         for j in range(g.n):
             fl += [*off_p[j], *off_c[j], *axis_p[j].reshape(-1), *axis_c[j].reshape(-1),
-                   limit[j, 0, 0], limit[j, 0, 1], damping[j], sp[j], sa[j]]
+                   *limits[j].reshape(-1), damping[j], sp[j], sa[j]]
             il += [int(g.parent[j]), int(g.child[j])]
     for a in sys.actuator_groups:
         strength = f64(a.strength)
         for k in range(a.n):
             fl.append(strength[k])
-            il += [joint_base[a.group_index] + int(a.joint_sel[k]), int(a.act_index[k][0])]
+            cols = [int(c) for c in a.act_index[k]]
+            il += [joint_base[a.group_index] + int(a.joint_sel[k])]
+            il += cols + [-1] * (MAX_DOF - len(cols))
     for gi, c in enumerate(sys.contact_groups):
         end, radius = f64(c.end), f64(c.radius)
         friction, elasticity = f64(c.com.friction), f64(c.com.elasticity)
@@ -174,10 +191,11 @@ class Plan:
     passes: int
     lanes: int
     envs_per_block: int
+    spherical: bool
     joint_parent: Tuple[int, ...]
     joint_child: Tuple[int, ...]
     act_joint: Tuple[int, ...]
-    act_col: Tuple[int, ...]
+    act_col: Tuple[Tuple[int, ...], ...]  # an action column per dof, -1 for none
     contact_a: Tuple[int, ...]
     contact_b: Tuple[int, ...]
     body_child_joints: Tuple[Tuple[int, ...], ...]
@@ -188,6 +206,11 @@ class Plan:
     @property
     def ng(self) -> int:
         return len(self.body_contacts)
+
+    @functools.cached_property
+    def last_act_col(self) -> int:
+        """The highest action column an actuator reads, -1 for none."""
+        return max((c for cols in self.act_col for c in cols), default=-1)
 
     @property
     def threads(self) -> int:
@@ -216,9 +239,10 @@ def plan(sys: System) -> Plan:
     nj = sum(g.n for g in sys.joint_groups)
     na = sum(a.n for a in sys.actuator_groups)
     nc = sum(_n_contacts(c) for c in sys.contact_groups)
+    a_int = 1 + MAX_DOF
     joints = itab[:2 * nj].reshape(nj, 2)
-    acts = itab[2 * nj:2 * nj + 2 * na].reshape(na, 2)
-    contacts = itab[2 * nj + 2 * na:].reshape(nc, 3)
+    acts = itab[2 * nj:2 * nj + a_int * na].reshape(na, a_int)
+    contacts = itab[2 * nj + a_int * na:].reshape(nc, 3)
     lanes = _next_pow2(max(nb, nj, na, nc, 1))
     if lanes > WARP:
         raise NotImplementedError(
@@ -229,8 +253,10 @@ def plan(sys: System) -> Plan:
     p = Plan(
         nb=nb, nj=nj, na=na, nc=nc, passes=sys.substeps // 2, lanes=lanes,
         envs_per_block=WARP // lanes,
+        spherical=any(g.kind == "spherical" for g in sys.joint_groups),
         joint_parent=tuple(parent), joint_child=tuple(child),
-        act_joint=tuple(acts[:, 0].tolist()), act_col=tuple(acts[:, 1].tolist()),
+        act_joint=tuple(acts[:, 0].tolist()),
+        act_col=tuple(tuple(row) for row in acts[:, 1:].tolist()),
         contact_a=tuple(contacts[:, 1].tolist()), contact_b=tuple(contacts[:, 2].tolist()),
         body_child_joints=tuple(tuple(j for j in range(nj) if child[j] == b) for b in range(nb)),
         body_parent_joints=tuple(tuple(j for j in range(nj) if parent[j] == b)
@@ -312,6 +338,8 @@ def scene_header(sys: System) -> str:
     }
     parts = ["// generated by brax_torch/sim/kernels.py::scene_header\n"]
     parts += [f"#define {k} {v}\n" for k, v in defines.items()]
+    if p.spherical:
+        parts.append("#define PBD_SPHERICAL 1\n")
     parts += [
         _lane_floats("BODY_F", bodies, L),
         _lane_floats("JOINT_F", joints, L),
@@ -324,7 +352,7 @@ def scene_header(sys: System) -> str:
         _lane_ints("JOINT_P", p.joint_parent, L, 0),
         _lane_ints("JOINT_C", p.joint_child, L, 0),
         _lane_ints("ACT_J", p.act_joint, L, 0),
-        _lane_ints("ACT_COL", p.act_col, L, -1),
+        _lane_int_rows("ACT_COL", _list_rows(p.act_col, MAX_DOF), L, -1),
         _lane_ints("CONTACT_A", p.contact_a, L, 0),
         _lane_ints("CONTACT_B", p.contact_b, L, 0),
         _lane_int_rows("BODY_CJ", _list_rows(p.body_child_joints, kc), L, -1),
@@ -506,8 +534,8 @@ def pbd_step_launch(sys: System, pos: Tensor, rot: Tensor, vel: Tensor, ang: Ten
             + " (see ROADMAP.md, queue B item 1)"
         )
     p = plan(sys)
-    if p.act_col and max(p.act_col) >= n_act:
-        raise ValueError(f"act has {n_act} columns; the actuators read column {max(p.act_col)}")
+    if p.last_act_col >= n_act:
+        raise ValueError(f"act has {n_act} columns; the actuators read column {p.last_act_col}")
 
     outs = tuple(torch.empty((n, nb, c), device=device, dtype=torch.float32)
                  for c in (3, 4, 3, 3, 3, 3))

@@ -20,7 +20,7 @@ def to_tau(sys: System, act: Tensor, q: Tensor) -> Tensor:
     if set(sys.actuator_types) != {"m"}:
         raise NotImplementedError(
             f"actuator types {sorted(set(sys.actuator_types) - {'m'})} are not ported yet; "
-            "brax_torch.v2 has motors ('m') only (see ROADMAP.md, queue A item 11)")
+            "brax_torch.v2 has motors ('m') only (see ROADMAP.md, queue A item 7)")
     rng = sys.actuator.ctrl_range
     force = torch.minimum(torch.maximum(act, rng[:, 0]), rng[:, 1])
     idx = torch.as_tensor(sys.actuator_qdid, device=act.device)

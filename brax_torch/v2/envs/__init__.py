@@ -2,7 +2,7 @@
 
 Ported: ant, halfcheetah, hopper, inverted_double_pendulum,
 inverted_pendulum, reacher and walker2d.  humanoid raises: its env is not
-ported yet (ROADMAP.md, queue A item 11).
+ported yet (ROADMAP.md, queue A item 3).
 """
 
 from __future__ import annotations
@@ -30,9 +30,9 @@ _envs: Dict[str, Type[PipelineEnv]] = {
 }
 
 _NOT_PORTED = {
-    "humanoid": "humanoid (nd 23, ~80 constraint rows) is not ported yet; since the "
-                "generalized kernel's redesign (a warp per env) its workspace fits, ~52 KB "
-                "of shared memory per env (see ROADMAP.md, queue A item 11)",
+    "humanoid": "humanoid (nd 23, nr 65 constraint rows) is not ported yet; the "
+                "generalized kernel covers its scene, with a workspace of 39,920 B of "
+                "shared memory per env (see ROADMAP.md, queue A item 3)",
 }
 
 

@@ -80,7 +80,7 @@ class PipelineEnv(Env):
         if backend != "generalized":
             raise NotImplementedError(
                 f"backend {backend!r} is not ported yet; brax_torch.v2 has 'generalized' "
-                "(see ROADMAP.md, queue A item 11)")
+                "(see ROADMAP.md, queue A item 7)")
         self.device = torch.device(device)
         self.sys = sys.to(self.device)
         self.batch_size = batch_size
@@ -91,7 +91,7 @@ class PipelineEnv(Env):
             if missing:
                 raise NotImplementedError(
                     "the generalized kernel does not cover: " + ", ".join(missing)
-                    + " (see ROADMAP.md, queue B item 3)")
+                    + " (see ROADMAP.md, queue B item 2)")
 
     def pipeline_init(self, q: Tensor, qd: Tensor) -> PipelineState:
         return g_pipeline.init(self.sys, q, qd)

@@ -909,7 +909,7 @@ def gen_step_plain(sys: System, q: Tensor, qd: Tensor, minv: Tensor, act: Tensor
     missing = unsupported_features(sys)
     if missing:
         raise NotImplementedError("the generalized kernel does not cover: " + ", ".join(missing)
-                                  + " (see ROADMAP.md, queue B item 3)")
+                                  + " (see ROADMAP.md, queue B item 2)")
     p = plan(sys)
     for _ in range(n_frames):
         q, qd, minv = _frame(sys, p, q, qd, minv, act)
@@ -961,7 +961,7 @@ def gen_step_soa(sys: System, q_t: Tensor, qd_t: Tensor, minv_t: Tensor, act_t: 
     missing = unsupported_features(sys)
     if missing:
         raise NotImplementedError("the generalized kernel does not cover: " + ", ".join(missing)
-                                  + " (see ROADMAP.md, queue B item 3)")
+                                  + " (see ROADMAP.md, queue B item 2)")
     p = plan(sys)
     n = q_t.shape[-1]
     na = len(p.act_qdid)

@@ -63,7 +63,7 @@ def points(sys: System) -> Points:
             raise NotImplementedError(
                 f"{type(ga).__name__}-{type(gb).__name__} contacts are not ported yet; "
                 "brax_torch.v2 has sphere-plane and capsule-plane (see ROADMAP.md, queue A "
-                "item 11)")
+                "item 7)")
         if gb.link_idx is not None:
             raise NotImplementedError("contacts with a plane on a link are not ported yet")
         s_pos, s_rot, s_rad = _np(ga.transform.pos), _np(ga.transform.rot), _np(ga.radius)

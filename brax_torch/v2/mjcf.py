@@ -156,7 +156,7 @@ def _fuse_bodies(elem: ElementTree.Element):
 def _not_ported(what: str):
     return NotImplementedError(
         f"{what} is not ported yet; brax_torch.v2.mjcf loads free/hinge/slide joints, "
-        "sphere/capsule/plane geoms and motors (see ROADMAP.md, queue A item 11)")
+        "sphere/capsule/plane geoms and motors (see ROADMAP.md, queue A item 7)")
 
 
 class _Compiler:

@@ -3,10 +3,11 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds brax_torch/csrc/pbd_step.cu with nvcc (sm_90a) for the v1 ant's
-   System (its scene header in front, brax_torch.sim.kernels.kernel_source)
-   and prints ptxas's register and spill report and the launch (lanes per
-   env, envs per block, resident blocks per SM, waves);
+2. builds brax_torch/csrc/pbd_step.cu with nvcc (sm_90a) for the v1 ant's,
+   humanoid's and humanoidstandup's Systems (each scene's header in front,
+   brax_torch.sim.kernels.kernel_source) and prints ptxas's register and
+   spill reports and the launches (lanes per env, envs per block, resident
+   blocks per SM, waves);
 3. holds the kernel against its plain-torch twin at the main path's shapes:
    ant at 4096 envs, from a contact-rich state (10 twin steps after reset).
    Every output (pos, rot, vel, ang and the contact vel/ang impulses) is
@@ -32,37 +33,49 @@
    a yardstick) replayed from CUDA graphs and issued by the host, their
    plain versions, PPO env-steps/s with the fused kernels on and off, and
    profiles one training step each way;
-9. holds the generalized-step kernel (brax_torch/csrc/gen_step.cu, built
+9. the v1 humanoid (the PBD kernel built for its scene of spherical
+   joints, PBD_SPHERICAL, and for humanoidstandup's, 32 lanes for its 22
+   contacts): each held against the twin at 4096 envs from a reset and
+   after 10 twin steps, with the rule of step 3; the main paths
+   envs.create(name, batch_size=4096) of humanoid (200 steps, profiled),
+   humanoid_legacy and humanoidstandup (50 each), one launch per step; the
+   kernel timed as in step 5 beside its bound; the fused MLP kernels held
+   and timed at the humanoid recipe's shapes (240-wide observation, a
+   34-wide policy head, 10,240-row minibatches); PPO at
+   DEFAULT_PPO_PARAMS["humanoid"] for 2 training steps and one evaluation
+   of 128 envs, with exact launch counts (per training step 160 PBD, 928
+   fused forward, 512 backward) and its env-steps/s;
+10. holds the generalized-step kernel (brax_torch/csrc/gen_step.cu, built
    for the v2 ant) against its plain version at 4096 envs from a state 10
    plain env steps after reset, at one frame and at ant's five, with the
    rounding rule of step 3 (at most GEN_MAX_OUTLIERS envs), and at five
    frames from a contact-rich reset (the torso lowered);
-10. drives the v2 main path: brax_torch.v2.envs.create("ant",
+11. drives the v2 main path: brax_torch.v2.envs.create("ant",
    batch_size=4096), reset, 200 env.step calls, one kernel launch each;
-11. times that kernel, its plain version and v2 env.step, profiles 20
+12. times that kernel, its plain version and v2 env.step, profiles 20
    env.step calls, counts the plain version's operations for the bound,
    and times the kernel (a warp per env) at every envs-per-block its
    shared memory allows, at 4096 and 16384 envs (one pass);
-12. holds the generalized-step kernel of each other v2 env (inverted
+13. holds the generalized-step kernel of each other v2 env (inverted
    pendulum, inverted double pendulum, reacher, halfcheetah, hopper,
    walker2d) against its plain version at 4096 envs and the env's n_frames,
    from a reset and, for the three with floor contacts, from a reset with
-   the torso lowered into contact, with the rule of step 9;
-13. drives each of those envs' main path: brax_torch.v2.envs.create(name,
+   the torso lowered into contact, with the rule of step 10;
+14. drives each of those envs' main path: brax_torch.v2.envs.create(name,
    batch_size=4096), reset, 50 env.step calls, one launch each, and times
    the step, the kernel and its plain version beside the kernel's bound;
-14. drives PPO on the v2 ant: ppo.train with a factory of the bare v2 ant at
+15. drives PPO on the v2 ant: ppo.train with a factory of the bare v2 ant at
    the ant recipe for 3 training steps and one evaluation of 128 envs, with
    exact launch counts of gen_step and of the fused MLP kernels, then
    times PPO env-steps/s with the fused kernels on and off in turns and
    profiles one training step each way;
-15. reads the launch-overhead probe's counts, set to 0 before step 3, to
+16. reads the launch-overhead probe's counts, set to 0 before step 3, to
    show that no env or PPO path ran its kernels; holds them
    (brax_torch/csrc/probe.cu) against their plain versions, counts the
    HGMMA (wgmma) instructions in the dot chain's build (cuobjdump), then
    drives the probe (brax_torch.tools.probe_overhead.measure), which times
    every launch both issued by the host and replayed from a CUDA graph;
-16. prints one JSON line listing every kernel and, last,
+17. prints one JSON line listing every kernel and, last,
    {"ok": true, "device": {...}}.
 
 The CUDA sources are built at the start, one nvcc each, in parallel (the
@@ -117,11 +130,21 @@ BF16_OPS_PER_S = 989e12
 # the PPO ant recipe's MLP chains (make_ppo_networks' defaults, 8 actions):
 # v1 ant's 87-wide observation, and v2 ant's 27-wide one ("_v2")
 CHAINS = {"value": [87] + [256] * 5 + [1], "policy": [87] + [32] * 4 + [16],
-          "value_v2": [27] + [256] * 5 + [1], "policy_v2": [27] + [32] * 4 + [16]}
+          "value_v2": [27] + [256] * 5 + [1], "policy_v2": [27] + [32] * 4 + [16],
+          "value_humanoid": [240] + [256] * 5 + [1],
+          "policy_humanoid": [240] + [32] * 4 + [34]}
 # (chain, rows) as the PPO paths launch them: minibatch [T=5, 1024] losses
 # (5120 rows), the rollout's policy at 2048 envs, the bootstrap value at 1024
 CHAIN_SHAPES = [(c + v, r) for v in ("", "_v2")
                 for c, r in (("value", 5120), ("policy", 5120), ("policy", 2048), ("value", 1024))]
+# the humanoid recipe's: minibatch [T=10, 1024] losses (10,240 rows), the
+# rollout's policy at 2048 envs, the eval's at 128, the bootstrap value at
+# 1024; parity at each, both chains; timed at the shapes a training step
+# launches
+HUMANOID_PARITY_SHAPES = [(c + "_humanoid", r) for c in ("value", "policy")
+                          for r in (10240, 2048, 128)] + [("value_humanoid", 1024)]
+HUMANOID_TIMING_SHAPES = [("value_humanoid", 10240), ("policy_humanoid", 10240),
+                          ("policy_humanoid", 2048), ("value_humanoid", 1024)]
 # f32 mode: tests/test_fused_mlp.py's tolerances (|err| <= atol + rtol |plain|)
 F32_TOL = {"fwd": (2e-5, 2e-5), "bwd": (2e-4, 2e-5)}
 # bf16 mode: max |kernel - plain| <= BF16_REL * max |plain|, per output.  The
@@ -152,6 +175,16 @@ V2_ENV_STEPS = 50
 V2_LOWER = 0.1
 PPO_STEPS = 3
 PPO_EVAL_ENVS = 128
+# v1 humanoid: the spherical scenes held to the twin, each env's main-path
+# steps and observation width, and PPO's training steps at its recipe
+HUMANOID_SCENES = ("humanoid", "humanoidstandup")
+HUMANOID_ENV_STEPS = {"humanoid": MAIN_STEPS, "humanoid_legacy": 50, "humanoidstandup": 50}
+HUMANOID_OBS = 240
+# the main paths each spherical scene's kernel runs (humanoid_legacy's
+# System is humanoid's)
+HUMANOID_MAIN_PATHS = {"humanoid": ("humanoid", "humanoid_legacy"),
+                       "humanoidstandup": ("humanoidstandup",)}
+PPO_HUMANOID_STEPS = 2
 # the PBD kernel's batch sizes: PPO's eval, PPO's training batch, env.step's
 PBD_TIMING_ENVS = (PPO_EVAL_ENVS, 2048, N_ENVS)
 PROFILE_EPISODE = 10
@@ -235,7 +268,7 @@ def rounding_decided(sys_, qp, act, idx, kernel_out, gen):
     return ok.reshape(len(idx), k).any(dim=1)
 
 
-def max_errors(sys_, qp, act, gen):
+def max_errors(sys_, qp, act, gen, label=""):
     """Kernel vs twin from one state.
 
     Returns ({field: max abs error over all envs}, {field: max abs error
@@ -258,13 +291,13 @@ def max_errors(sys_, qp, act, gen):
     for k, e in per_env.items():
         errs[k] = float(e.max())
         inside_errs[k] = float(e[~over].max()) if bool((~over).any()) else float("nan")
-        print(f"parity {k}: max|kernel - twin| = {errs[k]:.3e} over all envs, "
+        print(f"parity {label}{k}: max|kernel - twin| = {errs[k]:.3e} over all envs, "
               f"{inside_errs[k]:.3e} over the {int((~over).sum())} envs within tolerance "
               f"(tolerance {TOLERANCE[k]:.0e}; this field within it in "
               f"{int((e <= TOLERANCE[k]).sum())}/{e.numel()} envs)")
     idx = over.nonzero().flatten()
     outliers = len(idx)
-    print(f"parity: {outliers} outlier envs of {over.numel()}: {idx.tolist()}")
+    print(f"parity {label}: {outliers} outlier envs of {over.numel()}: {idx.tolist()}")
     if outliers > MAX_OUTLIERS:
         raise AssertionError(f"kernel disagrees with its plain twin in {outliers} envs "
                              f"(at most {MAX_OUTLIERS} allowed): {errs}")
@@ -286,7 +319,90 @@ def max_errors(sys_, qp, act, gen):
     return errs, inside_errs, outliers
 
 
-def pbd_launch_report(sys_, batches):
+def contact_share(sys_, qp, act):
+    """The share of envs with a contact impulse in the twin's step."""
+    _, info = kernels.pbd_step_plain(sys_, qp, act)
+    return float((info.contact.vel.abs().amax(dim=(1, 2)) > 0).float().mean())
+
+
+def pbd_bound(sys_, qp, act):
+    """(bound_ms, bound_by, ops, bytes, bytes_ms, ops_ms) of one PBD launch on
+    these inputs: the twin's operations (OpCount) at the fp32 rate against
+    the bytes moved (13 floats in and 19 out per body, the actions, the
+    scene's tables) at the HBM rate."""
+    counter = OpCount()
+    with counter:
+        kernels.pbd_step_plain(sys_, qp, act)
+    n, n_act, nb = act.shape[0], act.shape[1], sys_.num_bodies
+    ftab, itab = kernels.pack_tables(sys_)
+    n_bytes = 4 * n * (13 * nb + n_act + 19 * nb) + ftab.nbytes + itab.nbytes
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = counter.ops / FP32_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", counter.ops,
+            n_bytes, bytes_ms, ops_ms)
+
+
+def profile_env_step(tag, label, env, state, act_gen, steps=20):
+    """Device time and kernels per env.step over `steps` calls (the
+    profiler); prints the top kernels.  Returns (state, record)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = state.obs.shape[0]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            act = torch.rand((n, env.action_size), generator=act_gen, device=DEVICE) * 2 - 1
+            state = env.step(state, act)
+        torch.cuda.synchronize()
+    device_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0)
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    rec = {"device_us_per_step": sum(device_us(e) for e in events) / steps,
+           "kernels_per_step": sum(e.count for e in events) / steps}
+    if rec["device_us_per_step"]:
+        print(f"profile {tag}: {steps} {label} env.step calls, {rec['device_us_per_step']:.1f} "
+              f"us device time and {rec['kernels_per_step']:.0f} kernels per step")
+        for e in sorted(events, key=lambda e: -device_us(e))[:6]:
+            print(f"  {device_us(e) / steps:9.1f} us/step  {e.count / steps:6.2f}/step  "
+                  f"{e.key[:90]}")
+    else:
+        print(f"profile: {label} env.step: no device time recorded (not measured)")
+    return state, rec
+
+
+def v1_main_path(tag, name, steps, obs_width, warm):
+    """`steps` env.step calls of envs.create(name, batch_size=N_ENVS) with
+    random actions, exactly one PBD launch each (counts set to 0 just before,
+    read just after), finite observations of `obs_width`.  Returns (env,
+    state, act_gen, record)."""
+    env = envs.create(name, episode_length=1000, auto_reset=True, batch_size=N_ENVS)
+    state = env.reset(torch.Generator(device=DEVICE).manual_seed(1))
+    act_gen = torch.Generator(device=DEVICE).manual_seed(2)
+    kernels.pbd_step_launch.launches = 0
+    for i in range(steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        act = torch.rand((N_ENVS, env.action_size), generator=act_gen, device=DEVICE) * 2 - 1
+        state = env.step(state, act)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (steps - warm)
+    launches = kernels.pbd_step_launch.launches
+    if launches != steps:
+        raise AssertionError(f"{steps} {name} env steps made {launches} kernel launches")
+    if not bool(torch.isfinite(state.obs).all()):
+        raise AssertionError(f"non-finite {name} observations after the main path")
+    if state.obs.shape != (N_ENVS, obs_width):
+        raise AssertionError(f"{name} obs shape {tuple(state.obs.shape)}")
+    done = float(state.done.mean())
+    print(f"main path {name}: {steps} env.step calls, {launches} kernel launches, obs "
+          f"{tuple(state.obs.shape)} finite, done fraction {done:.4f}; env.step "
+          f"{step_s * 1e3:.4f} ms/step, {N_ENVS / step_s:.1f} env-steps/s (host clock, "
+          f"{steps - warm} steps) {tag}")
+    return env, state, act_gen, {"launches": launches, "done_fraction": done,
+                                 "env_step_ms": step_s * 1e3, "env_steps_per_s": N_ENVS / step_s}
+
+
+def pbd_launch_report(sys_, batches, label="ant"):
     """The PBD kernel's launch for a System: ptxas's figures, lanes per env,
     envs and threads per block, resident blocks per SM (the CUDA runtime's
     occupancy) and, per batch size, blocks, SMs used and waves."""
@@ -300,7 +416,8 @@ def pbd_launch_report(sys_, batches):
         blocks, _ = kernels.launch_geometry(p, n)
         rec[f"at_{n}"] = {"blocks": blocks, "sms_used": min(blocks, sms),
                           "waves": blocks / (sms * resident)}
-    print(f"pbd_step launch: {rec['registers']} registers, stack {rec['stack_bytes']} B, spills "
+    print(f"pbd_step launch {label}: {rec['registers']} registers, stack {rec['stack_bytes']} B, "
+          f"spills "
           f"{rec['spill_store_bytes']}/{rec['spill_load_bytes']} B; {p.lanes} lanes per env, "
           f"{p.envs_per_block} envs ({p.threads} threads) per block, {resident} blocks resident "
           f"per SM; " + "; ".join(f"{n} envs: {r['blocks']} blocks on {r['sms_used']} SMs, "
@@ -309,7 +426,7 @@ def pbd_launch_report(sys_, batches):
     return rec
 
 
-def pbd_timings(tag, sys_, qp, act, bound_per_env):
+def pbd_timings(tag, sys_, qp, act, bound_per_env, label="ant"):
     """The PBD kernel at each of PBD_TIMING_ENVS envs (the first n envs of
     the contact-rich state): ms per launch replayed from a CUDA graph of
     GRAPH_CALLS launches and issued by the host, and its bound."""
@@ -321,7 +438,7 @@ def pbd_timings(tag, sys_, qp, act, bound_per_env):
              "host": probe.host_us(new, GRAPH_CALLS) / 1e3,
              "bound_ms": n * bound_per_env}
         rec[n] = r
-        print(f"timing {tag}: pbd_step at {n} envs: {r['graph']:.5f} ms graph-replayed, "
+        print(f"timing {tag}: pbd_step {label} at {n} envs: {r['graph']:.5f} ms graph-replayed, "
               f"{r['host']:.5f} ms host-issued; bound {r['bound_ms']:.5f} ms")
     return rec
 
@@ -671,8 +788,8 @@ def time_chain(name, rows, bf16):
 # ---------------------------------------------------------------------------
 
 
-def recipe():
-    return dict(DEFAULT_PPO_PARAMS["ant"])
+def recipe(name="ant"):
+    return dict(DEFAULT_PPO_PARAMS[name])
 
 
 def env_steps_per_training_step(p):
@@ -725,8 +842,8 @@ def v2_ant(batch_size, device):
     return v2_envs.get_environment("ant", batch_size=batch_size, device=device)
 
 
-def run_ppo(fused, steps, environment="ant", **kw):
-    p = recipe()
+def run_ppo(fused, steps, environment="ant", preset="ant", **kw):
+    p = recipe(preset)
     p.update(num_timesteps=steps * env_steps_per_training_step(p), num_evals=1)
     p.update(kw)
     return ppo.train(environment, num_eval_envs=PPO_EVAL_ENVS, use_fused_kernel=fused, seed=0,
@@ -821,6 +938,135 @@ def print_profile(tag, label, mode, prof):
     return prof
 
 
+def humanoid_paths(tag, phase, h_envs, checks, fused_plans, times, bounds):
+    """The v1 humanoid phases: the PBD kernel's spherical group against the
+    twin per scene at N_ENVS envs (from a reset and after 10 twin steps),
+    the main paths (env.step of humanoid, humanoid_legacy and
+    humanoidstandup, exact launch counts), the kernel's timings and bound,
+    the fused MLP kernels against their plain versions and timed at the
+    humanoid recipe's shapes (added to `checks`, `fused_plans`, `times` and
+    `bounds`), and PPO at the humanoid recipe for PPO_HUMANOID_STEPS
+    training steps and one evaluation, with exact launch counts."""
+    # -- v1 humanoid: the spherical group, at 4096 envs -----------------------------
+    device = DEVICE
+    phase("humanoid: pbd_step parity")
+    h_scene = {}
+    for name, h_env in h_envs.items():
+        h_sys = h_env.sys
+        gen = torch.Generator(device=device).manual_seed(0)
+        rand_act = lambda: torch.rand((N_ENVS, h_env.action_size), generator=gen,
+                                      device=device) * 2 - 1
+        qp = h_env.reset(gen).qp
+        checks_h = {}
+        for label in ("reset", "after 10 twin steps"):
+            if label != "reset":
+                for _ in range(10):
+                    qp, _ = kernels.pbd_step_plain(h_sys, qp, rand_act())
+            act = rand_act()
+            share = contact_share(h_sys, qp, act)
+            print(f"parity state: {name}, {N_ENVS} envs, {label}, {share:.3f} in contact")
+            errs_h, inside_h, outliers_h = max_errors(h_sys, qp, act, gen, f"{name} {label} ")
+            checks_h[label] = {"max_abs_err_by_field": errs_h,
+                               "max_abs_err_within_tolerance_by_field": inside_h,
+                               "outlier_envs_decided_by_rounding": outliers_h,
+                               "contact_share": share}
+        h_scene[name] = {"sys": h_sys, "qp": qp, "act": act, "checks": checks_h}
+
+    phase("humanoid: main paths")
+    h_main = {}
+    for name, steps in HUMANOID_ENV_STEPS.items():
+        h_env, h_state, h_act_gen, h_main[name] = v1_main_path(
+            tag, name, steps, HUMANOID_OBS, warm=20 if steps == MAIN_STEPS else 10)
+        if name == "humanoid":
+            h_state, h_main[name]["profile"] = profile_env_step(tag, name, h_env, h_state,
+                                                                h_act_gen)
+
+    phase("humanoid: pbd_step timings")
+    for name, r in h_scene.items():
+        h_sys, qp, act = r["sys"], r["qp"], r["act"]
+        b = pbd_bound(h_sys, qp, act)
+        r["bound"] = dict(zip(("bound_ms", "bound_by", "ops", "bytes"), b[:4]))
+        r["plain_ms"] = cuda_ms(lambda: kernels.pbd_step_plain(h_sys, qp, act), reps=10,
+                                warmup=2)
+        r["ms_by_envs"] = pbd_timings(tag, h_sys, qp, act, b[0] / N_ENVS, name)
+        print(f"bound {tag}: pbd_step {name} at {N_ENVS} envs: {b[3]} bytes -> {b[4]:.5f} ms at "
+              f"3.35 TB/s; {b[2]} fp32 ops (the twin's, counted) -> {b[5]:.5f} ms at 67 "
+              f"TFLOP/s; plain twin {r['plain_ms']:.3f} ms/step")
+
+    phase("humanoid: fused_mlp parity and timings")
+    for name, rows in HUMANOID_PARITY_SHAPES:
+        for mode in ("bf16", "f32"):
+            checks[name, rows, mode] = check_chain(name, rows, mode == "bf16")
+            for kind, r in checks[name, rows, mode].items():
+                print(f"parity fused_mlp_{kind} {name}@{rows} {mode}: max|kernel - plain| = "
+                      f"{r['max_abs_err']:.3e}, mean|err|/mean|plain| up to "
+                      f"{r['max_mean_rel_err']:.3e}, {r['fraction_of_tolerance']:.3f} of the "
+                      f"tolerance")
+        for kind in ("fwd", "bwd"):
+            fused_plans[kind, name, rows] = {k: v for k, v in fused_mlp.card_plan(
+                tuple(CHAINS[name]), rows, device, kind == "bwd").items() if k != "scratch"}
+            print(f"launch fused_mlp_{kind} {name}@{rows} bf16: {fused_plans[kind, name, rows]}")
+    for name, rows in HUMANOID_TIMING_SHAPES:
+        for mode in ("bf16", "f32") if rows == 10240 else ("bf16",):
+            times[name, rows, mode] = t = time_chain(name, rows, mode == "bf16")
+            for kind in ("fwd", "bwd"):
+                bounds[kind, name, rows, mode] = b = chain_bound(
+                    CHAINS[name], rows, mode == "bf16", kind == "bwd")
+                print(f"timing {tag}: fused_mlp_{kind} {name}@{rows} {mode}: kernel "
+                      f"{t[kind]:.4f} ms graph-replayed ({t[kind + '_host']:.4f} host-issued), "
+                      f"plain {t['plain_' + kind]:.4f} ms, F.linear chain (cuBLAS) "
+                      f"{t['cublas_' + kind]:.4f} ms graph-replayed "
+                      f"({t['cublas_' + kind + '_host']:.4f} host-issued); bound {b[0]:.5f} ms by "
+                      f"{b[1]} ({b[2]:.4g} ops, {b[3]} bytes)")
+
+    phase("humanoid: PPO")
+    p_h = recipe("humanoid")
+    rollout_h, sgd_h, _ = launch_plan(p_h)
+    per_step_h = {"pbd_step": rollout_h * p_h["action_repeat"],
+                  "fused_mlp_fwd": rollout_h + 3 * sgd_h, "fused_mlp_bwd": 2 * sgd_h}
+    if per_step_h != {"pbd_step": 160, "fused_mlp_fwd": 928, "fused_mlp_bwd": 512}:
+        raise AssertionError(f"humanoid recipe launches per training step {per_step_h}")
+    want_h = dict(zip(("fused_mlp_fwd", "fused_mlp_bwd", "pbd_step"),
+                      expected_launches(p_h, PPO_HUMANOID_STEPS)))
+    recorder = InitRecorder()
+    kernels.pbd_step_launch.launches = 0
+    fused_mlp.chain_fwd.launches = fused_mlp.chain_bwd.launches = 0
+    t0 = time.perf_counter()
+    _, (_, policy_params), h_ppo = run_ppo(True, PPO_HUMANOID_STEPS, environment="humanoid",
+                                           preset="humanoid", network_factory=recorder.factory)
+    torch.cuda.synchronize()
+    h_ppo_s = time.perf_counter() - t0
+    h_launches = {"fused_mlp_fwd": fused_mlp.chain_fwd.launches,
+                  "fused_mlp_bwd": fused_mlp.chain_bwd.launches,
+                  "pbd_step": kernels.pbd_step_launch.launches}
+    moved = check_ppo_run("PPO humanoid", h_ppo, recorder, policy_params, h_launches, want_h)
+    widths = (recorder.initial["policy"]["hidden_0.kernel"].shape[0],
+              recorder.initial["policy"]["hidden_4.kernel"].shape[1])
+    if widths != (HUMANOID_OBS, 34):
+        raise AssertionError(f"the humanoid policy maps {widths[0]} inputs to {widths[1]}")
+    h_fused_ms = {
+        "fwd": rollout_h * times["policy_humanoid", 2048, "bf16"]["fwd"] + sgd_h * sum(
+            times[c + "_humanoid", r, "bf16"]["fwd"]
+            for c, r in (("policy", 10240), ("value", 10240), ("value", 1024))),
+        "bwd": sgd_h * sum(times[c + "_humanoid", 10240, "bf16"]["bwd"]
+                           for c in ("policy", "value")),
+    }
+    print(f"main path PPO humanoid: {PPO_HUMANOID_STEPS} training steps at the humanoid recipe "
+          f"(num_envs {p_h['num_envs']}, batch {p_h['batch_size']} x {p_h['num_minibatches']} "
+          f"minibatches, unroll {p_h['unroll_length']}, {p_h['num_updates_per_batch']} updates) "
+          f"+ one eval of {PPO_EVAL_ENVS} envs in {h_ppo_s:.1f} s; launches {h_launches} (as "
+          f"expected; per training step {per_step_h}); total_loss "
+          f"{h_ppo['training/total_loss']:.5g}, eval/episode_reward "
+          f"{h_ppo['eval/episode_reward']:.5g}; every parameter moved (smallest max change "
+          f"{moved:.3e})")
+    print(f"timing {tag}: PPO humanoid training env-steps/s over step 2 (host clock, fused_mlp "
+          f"on): {h_ppo['training/sps_after_first']:.1f}; fused device ms per training step "
+          f"(graph-replayed times x launches): fwd {h_fused_ms['fwd']:.3f}, bwd "
+          f"{h_fused_ms['bwd']:.3f}")
+    return {"scene": h_scene, "main": h_main, "launches": h_launches, "ppo": h_ppo,
+            "per_step": per_step_h, "fused_ms": h_fused_ms, "seconds": h_ppo_s}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -838,16 +1084,23 @@ def main():
     gen_env = v2_envs.create("ant", episode_length=1000, batch_size=N_ENVS)
     gen_sys = gen_env.sys
     scenes = [gen_sys] + [v2_envs.get_environment(name).sys for name in V2_ENVS]
+    h_envs = {name: envs.create(name, episode_length=1000, batch_size=N_ENVS)
+              for name in HUMANOID_SCENES}
     built = cuda_build.build(kernels.kernel_source(sys_), fused_mlp.SOURCE, probe.SOURCE,
+                             *(kernels.kernel_source(e.sys) for e in h_envs.values()),
                              *(gen_kernels.kernel_source(s) for s in scenes))
     print(f"build: {', '.join(p.name for p in built.values())} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a, in parallel)")
     print(kernels.ptxas_report(sys_).strip())
+    for e in h_envs.values():
+        print(kernels.ptxas_report(e.sys).strip())
     print(fused_mlp.ptxas_report().strip())
     print(probe.ptxas_report().strip())
     for scene in scenes:
         print(gen_kernels.ptxas_report(scene).strip())
     pbd_launch = pbd_launch_report(sys_, PBD_TIMING_ENVS)
+    h_launch = {name: pbd_launch_report(e.sys, PBD_TIMING_ENVS, name)
+                for name, e in h_envs.items()}
     hgmma = cuda_build.sass_count(built[probe.SOURCE], "HGMMA")
     print(f"probe dot_chain build: {hgmma} HGMMA (wgmma) instructions in "
           f"{built[probe.SOURCE].name} (cuobjdump --dump-sass)")
@@ -875,41 +1128,13 @@ def main():
 
     # -- main path: 200 env steps through envs.create ---------------------------
     phase("main path: env.step")
-    state = env.reset(torch.Generator(device=device).manual_seed(1))
-    act_gen = torch.Generator(device=device).manual_seed(2)
-    kernels.pbd_step_launch.launches = 0
-    for i in range(MAIN_STEPS):
-        if i == 20:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-        act = torch.rand((N_ENVS, env.action_size), generator=act_gen, device=device) * 2 - 1
-        state = env.step(state, act)
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / (MAIN_STEPS - 20)
-    launches = kernels.pbd_step_launch.launches
-    if launches != MAIN_STEPS:
-        raise AssertionError(f"{MAIN_STEPS} env steps made {launches} kernel launches")
-    if not bool(torch.isfinite(state.obs).all()):
-        raise AssertionError("non-finite observations after the main path")
-    if state.obs.shape != (N_ENVS, 87):
-        raise AssertionError(f"obs shape {tuple(state.obs.shape)}")
-    print(f"main path: {MAIN_STEPS} env.step calls, {launches} kernel launches, obs finite, "
-          f"done fraction {float(state.done.mean()):.4f}")
+    env, state, act_gen, ant_main = v1_main_path(tag, "ant", MAIN_STEPS, 87, warm=20)
+    launches, step_s = ant_main["launches"], ant_main["env_step_ms"] / 1e3
 
     # -- timings ------------------------------------------------------------
     phase("pbd_step timings")
     plain_ms = cuda_ms(lambda: kernels.pbd_step_plain(sys_, qp, act), reps=10, warmup=2)
-    counter = OpCount()
-    with counter:
-        kernels.pbd_step_plain(sys_, qp, act)
-    n_act = act.shape[1]
-    nb = sys_.num_bodies
-    ftab, itab = kernels.pack_tables(sys_)
-    n_bytes = 4 * N_ENVS * (13 * nb + n_act + 19 * nb) + ftab.nbytes + itab.nbytes
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = counter.ops / FP32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    bound_ms, bound_by, ops, n_bytes, bytes_ms, ops_ms = pbd_bound(sys_, qp, act)
     # the twin's operations and the bytes scale with the envs: the bound per env
     pbd_by_envs = pbd_timings(tag, sys_, qp, act, bound_ms / N_ENVS)
     kernel_ms = pbd_by_envs[N_ENVS]["graph"]
@@ -917,29 +1142,10 @@ def main():
     print(f"timing {tag}: env.step {step_s * 1e3:.4f} ms/step, "
           f"{N_ENVS / step_s:.1f} env-steps/s (host clock, {MAIN_STEPS - 20} steps)")
     print(f"bound {tag}: {n_bytes} bytes -> {bytes_ms:.5f} ms at 3.35 TB/s; "
-          f"{counter.ops} fp32 ops (the twin's, counted) -> {ops_ms:.5f} ms at 67 TFLOP/s")
+          f"{ops} fp32 ops (the twin's, counted) -> {ops_ms:.5f} ms at 67 TFLOP/s")
 
     # -- where env.step's device time goes ---------------------------------------
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            act = torch.rand((N_ENVS, env.action_size), generator=act_gen, device=device) * 2 - 1
-            state = env.step(state, act)
-        torch.cuda.synchronize()
-    device_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(
-        e, "self_cuda_time_total", 0)
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    total_us = sum(device_us(e) for e in events)
-    if total_us:
-        n_kernels = sum(e.count for e in events) / 20
-        print(f"profile {tag}: 20 env.step calls, {total_us / 20:.1f} us device time and "
-              f"{n_kernels:.0f} kernels per step")
-        for e in sorted(events, key=lambda e: -device_us(e))[:6]:
-            print(f"  {device_us(e) / 20:9.1f} us/step  {e.count // 20:4d}/step  "
-                  f"{e.key[:90]}")
-    else:
-        print("profile: no device time recorded (not measured)")
+    state, ant_profile = profile_env_step(tag, "ant", env, state, act_gen)
 
     # -- fused MLP kernels against their plain versions, recipe shapes ------------
     phase("fused_mlp parity")
@@ -1029,6 +1235,10 @@ def main():
     profiles = {mode: print_profile(tag, "", mode, profile_training_step(fused))
                 for mode, fused in (("on", True), ("off", False))}
 
+    h = humanoid_paths(tag, phase, h_envs, checks, fused_plans, times, bounds)
+    h_scene, h_main, h_launches, h_ppo = h["scene"], h["main"], h["launches"], h["ppo"]
+    per_step_h, h_fused_ms, h_ppo_s = h["per_step"], h["fused_ms"], h["seconds"]
+
     def fused_entry(kind, replaces, function):
         main = ("value", 5120, "bf16")
         b = bounds[(kind,) + main]
@@ -1041,6 +1251,7 @@ def main():
             "launches": ppo_launches[f"fused_mlp_{kind}"],
             "launches_by_path": {"PPO ant": ppo_launches[f"fused_mlp_{kind}"],
                                  "PPO v2 ant": v2_launches[f"fused_mlp_{kind}"],
+                                 "PPO humanoid": h_launches[f"fused_mlp_{kind}"],
                                  "probe": probe_launches.get(f"fused_mlp_{kind}", 0)},
             "launches_per_training_step": per_step_launches[kind],
             "max_abs_err": max(c[kind]["max_abs_err"] for k, c in checks.items()
@@ -1049,7 +1260,8 @@ def main():
                                    if k[2] == "f32"),
             "tolerance": {"bf16_rel_to_max": BF16_REL, "f32_rtol_atol": F32_TOL[kind]},
             "shape": "value chain 87-256x5-1 at 5120 rows, bf16; by_shape has every "
-                     "chain of both PPO paths (87-wide v1 ant, 27-wide v2 ant)",
+                     "chain of the PPO paths (87-wide v1 ant, 27-wide v2 ant, 240-wide "
+                     "humanoid)",
             "ms": times[main][kind],
             "ms_host_issued": times[main][kind + "_host"],
             "ms_clock": f"replayed from a CUDA graph of {GRAPH_CALLS} calls; ms_host_issued: "
@@ -1062,6 +1274,7 @@ def main():
             "cublas_chain_ms_host_issued": times[main]["cublas_" + kind + "_host"],
             "ms_per_training_step": per_step[kind],
             "ms_per_training_step_v2": per_step_v2[kind],
+            "ms_per_training_step_humanoid": h_fused_ms[kind],
             "launch": fused_plans[kind, "value", 5120],
             "by_shape": [
                 {"chain": c, "rows": r, "mode": m, "ms": times[c, r, m][kind],
@@ -1145,22 +1358,7 @@ def main():
           f"plain version's, counted) -> {gen_ops / FP32_OPS_PER_S * 1e3:.5f} ms at 67 TFLOP/s; "
           f"the reference's static count, {GEN_REFERENCE_FLOPS} flops per env step "
           f"(bench.py:291), would be {ref_ms:.5f} ms")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            act = torch.rand((N_ENVS, 8), generator=act_gen, device=device) * 2 - 1
-            state = gen_env.step(state, act)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    gen_profile = {"device_us_per_step": sum(device_us(e) for e in events) / 20,
-                   "kernels_per_step": sum(e.count for e in events) / 20}
-    if gen_profile["device_us_per_step"]:
-        print(f"profile {tag}: 20 v2 env.step calls, {gen_profile['device_us_per_step']:.1f} us "
-              f"device time and {gen_profile['kernels_per_step']:.0f} kernels per step "
-              f"(host {gen_step_s * 1e6:.1f} us per step)")
-        for e in sorted(events, key=lambda e: -device_us(e))[:8]:
-            print(f"  {device_us(e) / 20:9.1f} us/step  {e.count / 20:6.2f}/step  {e.key[:90]}")
-    else:
-        print("profile: v2 env.step: no device time recorded (not measured)")
+    state, gen_profile = profile_env_step(tag, "v2 ant", gen_env, state, act_gen)
 
     # -- gen_step envs per block: one pass -----------------------------------------
     phase("gen_step envs per block")
@@ -1308,6 +1506,11 @@ def main():
                    "gen_step_ms_at_num_envs": v2_kernel_ms,
                    "profile": {m: {k: v for k, v in prof.items() if k not in ("top", "host_top")}
                                for m, prof in v2_profiles.items()}},
+        "humanoid": {"env_steps_per_s_fused_on": h_ppo["training/sps_after_first"],
+                     "eval_episode_reward": h_ppo["eval/episode_reward"],
+                     "total_loss": h_ppo["training/total_loss"], "launches": h_launches,
+                     "launches_per_training_step": per_step_h, "seconds": h_ppo_s,
+                     "fused_ms_per_training_step": h_fused_ms},
         "card": name_limit}}))
     print(json.dumps({"kernels": [{
         "name": "pbd_step",
@@ -1316,7 +1519,9 @@ def main():
         "replaces": "brax_tpu/sim/kernels.py:1283",
         "replaces_function": "brax_tpu/sim/kernels.py::_build_tile_step",
         "launches": launches,
-        "max_abs_err": max(errs.values()),
+        "max_abs_err": max([*errs.values()] + [e for r in h_scene.values()
+                                                for c in r["checks"].values()
+                                                for e in c["max_abs_err_by_field"].values()]),
         "max_abs_err_by_field": errs,
         "max_abs_err_within_tolerance": max(inside_errs.values()),
         "max_abs_err_within_tolerance_by_field": inside_errs,
@@ -1335,6 +1540,23 @@ def main():
         "launch": pbd_launch,
         "env_steps_per_s": N_ENVS / step_s,
         "launches_ppo": ppo_launches["pbd_step"],
+        "launches_by_path": {"ant env.step": launches, "PPO ant": ppo_launches["pbd_step"],
+                             **{f"{name} env.step": r["launches"] for name, r in h_main.items()},
+                             "PPO humanoid": h_launches["pbd_step"]},
+        "by_scene": {
+            "ant": {"ms": kernel_ms, "ms_host_issued": pbd_by_envs[N_ENVS]["host"],
+                    "ms_by_envs": pbd_by_envs, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "max_abs_err_by_field": errs,
+                    "outlier_envs_decided_by_rounding": outliers, "launch": pbd_launch,
+                    "main_path": ant_main, "profile": ant_profile},
+            **{name: {"ms": r["ms_by_envs"][N_ENVS]["graph"],
+                      "ms_host_issued": r["ms_by_envs"][N_ENVS]["host"],
+                      "ms_by_envs": r["ms_by_envs"], "plain_ms": r["plain_ms"], **r["bound"],
+                      "checks": r["checks"], "launch": h_launch[name],
+                      "main_paths": {k: h_main[k] for k in HUMANOID_MAIN_PATHS[name]},
+                      "launches_ppo": h_launches["pbd_step"] if name == "humanoid" else None}
+               for name, r in h_scene.items()},
+        },
         "card": name_limit,
     },
         fused_entry("fwd", "brax_tpu/training/fused_mlp.py:204",

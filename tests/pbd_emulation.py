@@ -13,7 +13,8 @@ chip_smoke.py hold the card's build to the twin.
     python -m tests.pbd_emulation
 
 prints the largest difference from `pbd_step_plain` per output for ant (37
-envs) and ant with two legs removed (41 envs), in contact.
+envs), ant with two legs removed (41 envs), humanoid (37 envs) and
+humanoidstandup (19 envs), in contact.
 """
 
 import shutil
@@ -127,12 +128,11 @@ def max_errors(sys, qp, act):
 
 
 def main():
-    from brax_torch.envs.ant import Ant
-    from tests.test_torch_pbd_launch import Scene, scene_state, two_legged_ant_config
+    from tests.test_torch_pbd_launch import Scene, _config, scene_state
 
-    ant = Ant(batch_size=37, device="cpu")
-    two = Scene(two_legged_ant_config(), batch_size=41, device="cpu")
-    for name, env, n in (("ant", ant, 37), ("two_legged_ant", two, 41)):
+    for name, n in (("ant", 37), ("two_legged_ant", 41), ("humanoid", 37),
+                    ("humanoidstandup", 19)):
+        env = Scene(_config(name), batch_size=n, device="cpu")
         qp, act = scene_state(env, n, steps=10, seed=0, device="cpu")
         print(name, n, "envs:", max_errors(env.sys, qp, act))
 

@@ -128,6 +128,63 @@ def test_generated_kernel_replays_from_a_cuda_graph(cuda):
     assert torch.equal(info_want.contact.ang, info_got.contact.ang)
 
 
+def _humanoid_state(name, device, n, steps=10, seed=0):
+    """n envs of a spherical scene (humanoid or humanoidstandup) after
+    `steps` twin steps from reset noise (feet or body on the floor), and one
+    more action."""
+    from tests.test_torch_pbd_launch import Scene, _config, scene_state
+
+    env = Scene(_config(name), batch_size=n, device=device)
+    return env, *scene_state(env, n, steps=steps, seed=seed, device=device)
+
+
+@pytest.mark.parametrize("name", ["humanoid", "humanoidstandup"])
+@pytest.mark.parametrize("n", [1, 2, 4097])
+def test_spherical_kernel_matches_twin_by_batch(cuda, name, n):
+    """The spherical joint rows and 3-dof actuators (PBD_SPHERICAL), on
+    ragged batches in contact: humanoid 16 lanes (2 envs a warp),
+    humanoidstandup 32 (1 env a warp)."""
+    env, qp, act = _humanoid_state(name, cuda, n)
+    assert kernels.plan(env.sys).spherical
+    before = kernels.pbd_step_launch.launches
+    _rounding_rule_holds(env.sys, qp, act, cuda)
+    assert kernels.pbd_step_launch.launches == before + 1
+
+
+def test_spherical_kernel_gives_the_same_bits_twice_and_from_a_graph(cuda):
+    env, qp, act = _humanoid_state("humanoid", cuda, 1024)
+    want, info_want = kernels.pbd_step(env.sys, qp, act)
+    again, info_again = kernels.pbd_step(env.sys, qp, act)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernels.pbd_step(env.sys, qp, act)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, info_got = kernels.pbd_step(env.sys, qp, act)
+    got.pos.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    fields = lambda q, i: (q.pos, q.rot, q.vel, q.ang, i.contact.vel, i.contact.ang)
+    for x, y, z in zip(fields(want, info_want), fields(again, info_again),
+                       fields(got, info_got)):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+def test_humanoid_env_step_launches_the_kernel_once(cuda):
+    from brax_torch import envs
+
+    for name in ("humanoid", "humanoid_legacy", "humanoidstandup"):
+        env = envs.create(name, batch_size=64)
+        state = env.reset(torch.Generator(device=cuda).manual_seed(0))
+        before = kernels.pbd_step_launch.launches
+        for _ in range(3):
+            state = env.step(state, torch.zeros((64, 17), device=cuda))
+        assert kernels.pbd_step_launch.launches == before + 3
+        assert state.obs.shape == (64, 240) and bool(torch.isfinite(state.obs).all())
+
+
 # ---------------------------------------------------------------------------
 # fused MLP kernels
 # ---------------------------------------------------------------------------
@@ -165,6 +222,8 @@ def _close(got, want, bf16, kind):
     ((137,), 87, (32,) * 4 + (16,), "swish"),
     ((137,), 27, (256,) * 5 + (1,), "swish"),
     ((137,), 27, (32,) * 4 + (16,), "swish"),
+    ((137,), 240, (256,) * 5 + (1,), "swish"),
+    ((137,), 240, (32,) * 4 + (34,), "swish"),
     ((64,), 87, (64, 64, 8), "relu"),
     ((33,), 87, (40, 3), "tanh"),
     ((5, 33), 29, (64, 7), "swish"),

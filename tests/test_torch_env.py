@@ -36,7 +36,7 @@ def test_create_builds_the_wrapper_stack():
 
 def test_create_names_envs_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        envs.create("humanoid", device="cpu")
+        envs.create("halfcheetah", device="cpu")
 
 
 def test_reset_draws_its_noise_from_the_generator():
@@ -98,7 +98,8 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "brax_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 50
     for module in ("v2/generalized/kernels.py", "v2/envs/hopper.py", "v2/envs/reacher.py",
-                   "tools/probe_overhead.py"):
+                   "tools/probe_overhead.py", "envs/humanoid.py", "envs/humanoid_standup.py",
+                   "envs/assets/humanoid_new.py", "tools/brax_training.py"):
         assert REPO / "brax_torch" / module in files, module
     bad = [
         (str(f.relative_to(REPO)), name)
@@ -114,7 +115,7 @@ def test_importing_the_port_loads_no_brax_tpu():
         "import sys, brax_torch.envs, brax_torch.sim.kernels, brax_torch.braxlines.defaults, "
         "brax_torch.training.agents.ppo.train, brax_torch.v2.envs, brax_torch.v2.mjcf, "
         "brax_torch.v2.generalized.kernels, brax_torch.v2.envs.walker2d, "
-        "brax_torch.tools.probe_overhead; "
+        "brax_torch.tools.probe_overhead, brax_torch.tools.brax_training; "
         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('brax_tpu', 'flax', 'optax')))"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -17,12 +17,16 @@ from tests.torch_parity import one_torch_thread  # noqa: F401
 
 H100_SMS = 132
 SOURCE = fused_mlp.SOURCE.read_text()
-# the chains of both PPO paths (87-wide v1 ant, 27-wide v2 ant observation)
-# and the row counts they run at: minibatch losses, the rollout's policy,
-# the bootstrap value, an evaluation of 128 envs
+# the chains of the PPO paths (87-wide v1 ant, 27-wide v2 ant, 240-wide
+# humanoid observation; humanoid's 17 actions make a 34-wide policy head)
+# and the row counts they run at: minibatch losses (5120 for ant, 10,240 for
+# humanoid), the rollout's policy, the bootstrap value, an evaluation of 128
+# envs
 PPO_CHAINS = {"value": [87] + [256] * 5 + [1], "policy": [87] + [32] * 4 + [16],
-              "value_v2": [27] + [256] * 5 + [1], "policy_v2": [27] + [32] * 4 + [16]}
-PPO_ROWS = (5120, 2048, 1024, 128)
+              "value_v2": [27] + [256] * 5 + [1], "policy_v2": [27] + [32] * 4 + [16],
+              "value_humanoid": [240] + [256] * 5 + [1],
+              "policy_humanoid": [240] + [32] * 4 + [34]}
+PPO_ROWS = (10240, 5120, 2048, 1024, 128)
 WIDEST = [fused_mlp.MAX_WIDTH] * (fused_mlp.MAX_LAYERS + 1)
 
 

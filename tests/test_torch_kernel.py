@@ -19,6 +19,7 @@ import torch
 
 from brax_tpu.sim import kernels as jax_kernels
 from brax_torch.envs.ant import Ant
+from brax_torch.envs.humanoid import Humanoid
 from brax_torch.sim import kernels
 from brax_torch.sim.types import QP
 
@@ -86,21 +87,26 @@ def test_pack_tables_layout(states):
     ftab, itab = kernels.pack_tables(env.sys)
     nb, nj, na, nc = 10, 8, 8, 5
     assert ftab.dtype == np.float32 and itab.dtype == np.int32
-    assert ftab.shape == (9 + 14 * nb + 29 * nj + na + 6 * nc,)
-    assert itab.shape == (2 * nj + 2 * na + 3 * nc,)
+    assert ftab.shape == (9 + 14 * nb + 33 * nj + na + 6 * nc,)
+    assert itab.shape == (2 * nj + 4 * na + 3 * nc,)
     sys = env.sys
     np.testing.assert_allclose(ftab[0], sys.integrator.dt)
     np.testing.assert_allclose(ftab[9:9 + 14 * nb:14], sys.mass.numpy())
     parents = itab[0:2 * nj:2]
     np.testing.assert_array_equal(parents, sys.joint_groups[0].parent)
-    contacts = itab[2 * nj + 2 * na:].reshape(nc, 3)
+    acts = itab[2 * nj:2 * nj + 4 * na].reshape(na, 4)
+    np.testing.assert_array_equal(acts[:, 1], sys.actuator_groups[0].act_index[:, 0])
+    assert (acts[:, 2:] == -1).all()  # a revolute actuator has one action column
+    contacts = itab[2 * nj + 4 * na:].reshape(nc, 3)
     np.testing.assert_array_equal(contacts[:, 1], sys.contact_groups[0].com.body_a)
 
 
 def test_supported_names_missing_features(states):
     env, _, _ = states
     assert kernels.supported(env.sys)
-    joints = (dataclasses.replace(env.sys.joint_groups[0], kind="spherical"),)
-    other = dataclasses.replace(env.sys, joint_groups=joints, collider_cutoff=4)
-    assert kernels.unsupported_features(other) == ["collider_cutoff", "spherical joints"]
+    # spherical joints are covered: humanoid's System is supported
+    assert kernels.supported(Humanoid(batch_size=1, device="cpu").sys)
+    acts = (dataclasses.replace(env.sys.actuator_groups[0], kind="angle"),)
+    other = dataclasses.replace(env.sys, actuator_groups=acts, collider_cutoff=4)
+    assert kernels.unsupported_features(other) == ["collider_cutoff", "angle actuators"]
     assert not kernels.supported(other)

@@ -4,8 +4,10 @@
 front of `brax_torch/csrc/pbd_step.cu`: counts, topology, the per-body lists
 that the body lanes gather, and the values that `pack_tables` packs, as
 float literals laid out [field][lane].  These tests parse that header and
-hold it to `pack_tables` and to the System, for ant and for ant with two of
-its legs removed (8 lanes per env instead of 16).  No JAX, no card: the
+hold it to `pack_tables` and to the System, for ant, for ant with two of
+its legs removed (8 lanes per env instead of 16), and for the spherical
+scenes humanoid (16 lanes) and humanoidstandup (22 contacts: 32 lanes, an
+env per warp).  No JAX, no card: the
 kernel itself is held to its twin by tests/test_torch_cuda.py and
 chip_smoke.py.
 """
@@ -19,6 +21,8 @@ import torch
 
 from brax_torch.envs import base
 from brax_torch.envs.assets.ant import ant_config
+from brax_torch.envs.assets.humanoid_new import humanoid_new_config
+from brax_torch.envs.assets.humanoid_standup import humanoid_standup_config
 from brax_torch.sim import builder, kernels
 
 from tests import pbd_emulation
@@ -30,6 +34,10 @@ TOLERANCE = {"pos": 1e-4, "rot": 1e-4, "vel": 3e-3, "ang": 3e-3, "contact_vel": 
              "contact_ang": 3e-3}
 LEGS_REMOVED = {"Aux 3", "$ Body 10", "Aux 4", "$ Body 13"}
 JOINTS_REMOVED = {"hip_3", "ankle_3", "hip_4", "ankle_4"}
+SCENES = ["ant", "two_legged_ant", "humanoid", "humanoidstandup"]
+# (lanes, envs per block) of each scene's plan
+LANES = {"ant": (16, 2), "two_legged_ant": (8, 4), "humanoid": (16, 2),
+         "humanoidstandup": (32, 1)}
 
 
 def two_legged_ant_config():
@@ -67,12 +75,16 @@ def scene_state(env, n, steps, seed, device):
     return qp, act()
 
 
+def _config(name):
+    return {"ant": ant_config, "two_legged_ant": two_legged_ant_config,
+            "humanoid": humanoid_new_config, "humanoidstandup": humanoid_standup_config}[name]()
+
+
 def _system(name):
-    cfg = ant_config() if name == "ant" else two_legged_ant_config()
-    return builder.build(cfg, device="cpu")[0]
+    return builder.build(_config(name), device="cpu")[0]
 
 
-@pytest.fixture(scope="module", params=["ant", "two_legged_ant"])
+@pytest.fixture(scope="module", params=SCENES)
 def scene(request):
     sys = _system(request.param)
     return request.param, sys, kernels.scene_header(sys)
@@ -114,8 +126,11 @@ def test_header_literals_equal_pack_tables(scene):
 
 
 def test_header_counts_and_plan(scene):
-    _, sys, header = scene
+    name, sys, header = scene
     p = kernels.plan(sys)
+    assert (p.lanes, p.envs_per_block) == LANES[name]
+    spherical = name.startswith("humanoid")
+    assert p.spherical == spherical == ("#define PBD_SPHERICAL 1\n" in header)
     kc, kp, ka, kg = p.widths
     want = {"PBD_NB": p.nb, "PBD_NJ": p.nj, "PBD_NA": p.na, "PBD_NC": p.nc, "PBD_NG": p.ng,
             "PBD_PASSES": sys.substeps // 2, "PBD_LANES": p.lanes,
@@ -152,9 +167,14 @@ def test_actuator_lists_agree_with_the_system(scene):
     joint_of = [g_base + int(j) for a in sys.actuator_groups
                 for g_base in [sum(g.n for g in sys.joint_groups[:a.group_index])]
                 for j in a.joint_sel]
-    cols = [int(c[0]) for a in sys.actuator_groups for c in a.act_index]
-    assert list(p.act_joint) == joint_of and list(p.act_col) == cols
-    np.testing.assert_array_equal(_array(header, "ACT_COL")[:p.na], cols)
+    # an action column per dof, -1 for a padded dof and past the joint's dofs
+    cols = [[int(c) for c in row] + [-1] * (kernels.MAX_DOF - len(row))
+            for a in sys.actuator_groups for row in a.act_index]
+    assert list(p.act_joint) == joint_of and [list(c) for c in p.act_col] == cols
+    header_cols = _array(header, "ACT_COL")  # [dof][lane]
+    assert header_cols.shape == (kernels.MAX_DOF, p.lanes)
+    np.testing.assert_array_equal(header_cols[:, :p.na].T, cols)
+    assert (header_cols[:, p.na:] == -1).all()
     acts, signs = _array(header, "BODY_ACT"), _array(header, "BODY_ACT_SIGN")
     for b in range(p.nb):
         want = [(k, 1 if p.joint_parent[j] == b else -1) for k, j in enumerate(joint_of)
@@ -202,7 +222,8 @@ def test_source_path_per_system():
     ant, ant_again, two = _system("ant"), _system("ant"), _system("two_legged_ant")
     path = kernels.kernel_source(ant)
     assert path == kernels.kernel_source(ant_again) == kernels.kernel_source(ant)
-    assert path != kernels.kernel_source(two)
+    assert len({path, kernels.kernel_source(two), kernels.kernel_source(_system("humanoid")),
+                kernels.kernel_source(_system("humanoidstandup"))}) == 4
     assert path.name.startswith("pbd_step_") and path.parent == kernels.BUILD_DIR
     text = path.read_text()
     assert text.startswith(kernels.scene_header(ant))
@@ -213,16 +234,24 @@ def test_source_path_per_system():
     ({}, []),
     ({"collider_cutoff": 4}, ["collider_cutoff"]),
     ({"dynamics_mode": "legacy_spring"}, ["dynamics_mode='legacy_spring'"]),
-    ({"joint_kind": "spherical"}, ["spherical joints"]),
+    ({"scene": "humanoid"}, []),
     ({"actuator_kind": "angle"}, ["angle actuators"]),
     ({"force_groups": ("thruster",)}, ["thruster/twister forces"]),
     ({"num_bodies": 17}, ["17 bodies (the kernel holds 16)"]),
     ({"n_act": 33}, ["33 action columns (the kernel holds 32)"]),
+    ({"joint_kind": "spring_spherical"}, ["spring_spherical joints"]),
+    ({"scene": "humanoid", "joint_groups": "ant"},
+     ["revolute and spherical joints in one System"]),
 ])
 def test_unsupported_features_unchanged(change, want):
-    sys = _system("ant")
+    """Spherical joints are covered (humanoid's System misses nothing); a
+    spring kind and a System that mixes revolute and spherical groups (which
+    `builder.build` never makes) are not."""
     change = dict(change)
+    sys = _system(change.pop("scene", "ant"))
     n_act = change.pop("n_act", 0)
+    if change.get("joint_groups") == "ant":
+        change["joint_groups"] = sys.joint_groups + _system("ant").joint_groups
     if "joint_kind" in change:
         change["joint_groups"] = (dataclasses.replace(sys.joint_groups[0],
                                                       kind=change.pop("joint_kind")),)
@@ -235,15 +264,18 @@ def test_unsupported_features_unchanged(change, want):
         assert kernels.supported(other) == (not want)
 
 
-@pytest.mark.parametrize("name,n", [("ant", 37), ("two_legged_ant", 41)])
+@pytest.mark.parametrize("name,n", [("ant", 37), ("two_legged_ant", 41), ("humanoid", 37),
+                                    ("humanoidstandup", 19)])
 def test_generated_kernel_lane_logic_matches_twin_in_emulation(name, n):
     """The generated source, compiled for the host with a warp emulated by
     32 threads (tests/pbd_emulation.py), steps ragged batches in contact
-    within TOLERANCE of the twin in every env."""
+    within TOLERANCE of the twin in every env: for the humanoids, the
+    spherical joint rows and 3-dof actuators too."""
     if pbd_emulation.compiler() is None:
         pytest.skip("needs a host C++ compiler for the emulation")
-    env = Scene(ant_config() if name == "ant" else two_legged_ant_config(), batch_size=n,
-                device="cpu")
+    env = Scene(_config(name), batch_size=n, device="cpu")
     qp, act = scene_state(env, n, steps=10, seed=0, device="cpu")
+    _, info = kernels.pbd_step_plain(env.sys, qp, act)
+    assert (info.contact.vel.abs().amax(dim=(1, 2)) > 0).float().mean() > 0.5
     errs = pbd_emulation.max_errors(env.sys, qp, act)
     assert all(errs[k] <= TOLERANCE[k] for k in TOLERANCE), errs

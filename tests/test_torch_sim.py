@@ -16,6 +16,7 @@ from brax_tpu.sim import builder as jax_builder
 from brax_torch.envs.ant import Ant
 from brax_torch.envs.assets.ant import ant_config
 from brax_torch.sim import builder, initial
+from brax_torch.sim.config import Force
 from brax_torch.sim.system import System, flatten
 from brax_torch.sim.types import QP
 
@@ -54,9 +55,14 @@ def test_from_numpy_round_trips(jax_tables):
 
 
 def test_build_raises_on_features_not_ported():
+    # a 2-dof joint is built now: the scene is sphericalized
     cfg = ant_config()
     cfg.joints[0].angle_limits.append((-10.0, 10.0))
-    with pytest.raises(NotImplementedError, match="spherical"):
+    sys, art = builder.build(cfg, device="cpu")
+    assert [g.kind for g in sys.joint_groups] == ["spherical"] and art.action_size == 9
+    cfg = ant_config()
+    cfg.forces = [Force(name="push", body="$ Torso", strength=1.0)]
+    with pytest.raises(NotImplementedError, match="thruster/twister forces"):
         builder.build(cfg, device="cpu")
     cfg = ant_config()
     cfg.actuators[0] = dataclasses.replace(cfg.actuators[0], kind="angle")

@@ -295,7 +295,7 @@ def test_ppo_trains_v2_inverted_pendulum():
 
 def test_registry():
     assert sorted(envs._envs) == sorted(ENVS + ("ant",))
-    with pytest.raises(NotImplementedError, match="redesign"):
+    with pytest.raises(NotImplementedError, match="39,920 B"):
         envs.get_environment("humanoid", device="cpu")
 
     class Slow(envs.InvertedPendulum):
