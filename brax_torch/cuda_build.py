@@ -48,6 +48,15 @@ def sass_count(library: Path, opcode: str) -> int:
     return sum(opcode in line for line in out.splitlines())
 
 
+def sass(library: Path) -> list:
+    """A built library's SASS instructions, in order, without their
+    addresses and encodings (cuobjdump --dump-sass)."""
+    out = subprocess.run([toolkit("cuobjdump"), "--dump-sass", str(library)],
+                         capture_output=True, text=True, check=True).stdout
+    return [line.split("*/", 1)[1].split(";")[0].strip() for line in out.splitlines()
+            if line.strip().startswith("/*") and "*/" in line]
+
+
 def source_flags(source: Path) -> list:
     """The flags a source asks for on its `// nvcc-flags:` lines."""
     return [flag for line in source.read_text().splitlines()

@@ -4,8 +4,9 @@ Counterpart of `brax_tpu/envs/__init__.py`.  Ported so far: ant (with the
 fork's default of contact-force observations), the humanoids ("humanoid" is
 the fork's humanoid_new, as in the JAX registry; "humanoid_legacy",
 "humanoidstandup"), halfcheetah and pusher (whose scenes have two-way
-capsule-capsule contacts) and the trainer test env fast; the other
-environments are queued in ROADMAP.md.
+capsule-capsule contacts), inverted_pendulum, inverted_double_pendulum and
+swimmer (thruster forces), reacherangle (angle actuators), reacher and the
+trainer test env fast; the other environments are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -20,7 +21,12 @@ from brax_torch.envs.fast import Fast
 from brax_torch.envs.halfcheetah import Halfcheetah
 from brax_torch.envs.humanoid import Humanoid, HumanoidLegacy
 from brax_torch.envs.humanoid_standup import HumanoidStandup
+from brax_torch.envs.inverted_double_pendulum import InvertedDoublePendulum
+from brax_torch.envs.inverted_pendulum import InvertedPendulum
 from brax_torch.envs.pusher import Pusher
+from brax_torch.envs.reacher import Reacher
+from brax_torch.envs.reacherangle import ReacherAngle
+from brax_torch.envs.swimmer import Swimmer
 
 _envs = {
     "ant": functools.partial(Ant, use_contact_forces=True),
@@ -29,7 +35,12 @@ _envs = {
     "humanoid": Humanoid,
     "humanoid_legacy": HumanoidLegacy,
     "humanoidstandup": HumanoidStandup,
+    "inverted_double_pendulum": InvertedDoublePendulum,
+    "inverted_pendulum": InvertedPendulum,
     "pusher": Pusher,
+    "reacher": Reacher,
+    "reacherangle": ReacherAngle,
+    "swimmer": Swimmer,
 }
 
 

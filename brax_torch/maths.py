@@ -127,6 +127,18 @@ def arctan2(y: Tensor, x: Tensor) -> Tensor:
     return out
 
 
+def quat_to_euler(q: Tensor) -> Tensor:
+    """Quaternion -> intrinsic x-y'-z'' Euler angles in radians, (..., 3).
+
+    As the JAX package's outside its kernels: torch.atan2 and torch.asin of
+    the clipped sine (an observation's maths, not differentiated)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    ez = torch.atan2(-2 * x * y + 2 * w * z, x * x + w * w - z * z - y * y)
+    ey = torch.asin(torch.clamp(2 * x * z + 2 * w * y, -1.0, 1.0))
+    ex = torch.atan2(-2 * y * z + 2 * w * x, z * z - y * y - x * x + w * w)
+    return torch.stack([ex, ey, ez], dim=-1)
+
+
 def signed_angle(axis: Tensor, ref_p: Tensor, ref_c: Tensor) -> Tensor:
     """Signed angle between two vectors around an axis."""
     return arctan2(vdot(cross(ref_p, ref_c), axis), vdot(ref_p, ref_c))

@@ -1,15 +1,18 @@
-"""Dense batched actuators, batch-first.
+"""Dense batched actuators and direct forces, batch-first.
 
 Counterpart of `brax_tpu/sim/actuators.py`.  An `ActuatorGroup` drives a
 subset of one joint group; the action vector is gathered with a static index
-table whose -1 entries (padded dofs) are masked out.  This slice ports the
-torque actuator; angle actuators and thruster/twister forces are not ported
-yet.
+table whose -1 entries (padded dofs) are masked out.  Torque actuators are
+ported, and angle actuators (a PD torque toward the action's angle) on
+revolute joints; angle actuators on spherical joints are not ported yet.  A
+`ForceGroup` pushes bodies straight from three action columns each: a
+thruster's linear, a twister's angular velocity change.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -21,7 +24,7 @@ from brax_torch.sim.types import DP, QP, Tensor, index
 
 @dataclass
 class ActuatorGroup:
-    kind: str  # only 'torque' is ported
+    kind: str  # 'torque' | 'angle' (revolute joints only)
     group_index: int  # which joint group
     joint_sel: np.ndarray  # (na,) indices into the joint group
     act_index: np.ndarray  # (na, dof) with -1 padding
@@ -44,9 +47,12 @@ def _take_group(g: joints_mod.JointGroup, sel: np.ndarray) -> joints_mod.JointGr
 
 def apply(a: ActuatorGroup, g: joints_mod.JointGroup, qp: QP, act: Tensor, nb: int) -> DP:
     """Applies actuator torques to the joints' parent/child bodies."""
-    if a.kind != "torque":
+    if a.kind not in ("torque", "angle"):
+        raise ValueError(f"unknown actuator kind: {a.kind}")
+    if a.kind == "angle" and g.kind != "revolute":
         raise NotImplementedError(
-            f"{a.kind} actuators are not ported yet (see ROADMAP.md, queue B item 1)"
+            f"angle actuators on {g.kind} joints are not ported yet (see ROADMAP.md, queue B "
+            "item 1)"
         )
     sub = _take_group(g, a.joint_sel)
     qp_p = qp.take(sub.parent)
@@ -59,13 +65,52 @@ def apply(a: ActuatorGroup, g: joints_mod.JointGroup, qp: QP, act: Tensor, nb: i
     limit_min = sub.limit[..., 0]  # (na, dof)
     limit_max = sub.limit[..., 1]
 
-    # -1 so that positive actuation increases the parent-child angle
-    torque_scalar = act_g * a.strength[..., None] * -1.0
-    torque_scalar = torch.where(angles < limit_min, 0.0, torque_scalar)
-    torque_scalar = torch.where(angles > limit_max, 0.0, torque_scalar)
-    torque = torch.sum(axes * torque_scalar[..., None], dim=-2)
-    dang_p = sub.inertia_p * torque
-    dang_c = -sub.inertia_c * torque
+    if a.kind == "angle":
+        # PD toward the action's angle (degrees), clipped to the limits; the
+        # parent is pushed opposite to a torque actuator's
+        target = torch.clamp(act_g * math.pi / 180, limit_min, limit_max)
+        torque_scalar = (target - angles) * a.strength[..., None]
+        torque = torch.sum(axes * torque_scalar[..., None], dim=-2)
+        dang_p = -sub.inertia_p * torque
+        dang_c = sub.inertia_c * torque
+    else:
+        # -1 so that positive actuation increases the parent-child angle
+        torque_scalar = act_g * a.strength[..., None] * -1.0
+        torque_scalar = torch.where(angles < limit_min, 0.0, torque_scalar)
+        torque_scalar = torch.where(angles > limit_max, 0.0, torque_scalar)
+        torque = torch.sum(axes * torque_scalar[..., None], dim=-2)
+        dang_p = sub.inertia_p * torque
+        dang_c = -sub.inertia_c * torque
 
     dang = joints_mod._scatter_add3(dang_p, dang_c, sub.parent, sub.child, nb)
     return DP(vel=torch.zeros_like(dang), ang=dang)
+
+
+@dataclass
+class ForceGroup:
+    """Direct linear force (thruster) or torque (twister) on bodies."""
+
+    kind: str  # 'thruster' | 'twister'
+    body: np.ndarray  # (nf,)
+    act_index: np.ndarray  # (nf, 3)
+    strength: Tensor = None  # (nf,)
+    mass: Tensor = None  # (nf,)
+
+    @property
+    def n(self) -> int:
+        return len(self.body)
+
+
+def force_apply(f: ForceGroup, qp: QP, act: Tensor, nb: int) -> DP:
+    """Each force's three action columns times strength / mass, on its body.
+
+    The columns are clipped to the width of `act`, as the JAX package's
+    `jnp.take(mode="clip")` clips them: inverted_pendulum's thruster reads
+    columns 0-2 of a 1-wide action, (a0, a0, a0)."""
+    cols = np.clip(f.act_index, 0, act.shape[-1] - 1)
+    d = act[..., index(cols, act.device)] * f.strength[..., None] / f.mass[..., None]
+    out = act.new_zeros(act.shape[:-1] + (nb, 3))
+    moved = joints_mod.scatter_add_bodies(out, f.body, d)
+    if f.kind == "thruster":
+        return DP(vel=moved, ang=out)
+    return DP(vel=out, ang=moved)

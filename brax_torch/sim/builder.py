@@ -5,9 +5,10 @@ float64 numpy and is cast to float32, then every table moves to `device` as a
 tensor; index tables stay host numpy.  The port builds PBD dynamics, revolute
 joints, spherical joints (a PBD scene whose joints mix dofs, or has a 2-dof
 joint, is "sphericalized": each joint is padded to 3 dofs with (0, 0)
-limits), torque actuators, one-way capsule-plane contacts and two-way
-capsule-capsule contacts.  Any other feature raises NotImplementedError
-naming it.
+limits), torque and angle actuators, thruster and twister forces (their
+action columns follow the actuators'), one-way capsule-plane contacts and
+two-way capsule-capsule contacts.  Any other feature raises
+NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -74,8 +75,6 @@ def build(config: cfg.Config, device="cuda") -> Tuple[System, BuildArtifacts]:
         raise _not_ported(f"dynamics_mode={config.dynamics_mode!r}")
     if config.collider_cutoff:
         raise _not_ported("collider_cutoff (nearest-pair culling)")
-    if config.forces:
-        raise _not_ported("thruster/twister forces")
 
     def f32(x) -> torch.Tensor:
         a = np.asarray(np.asarray(x, dtype=np.float64), dtype=np.float32)
@@ -95,6 +94,7 @@ def build(config: cfg.Config, device="cuda") -> Tuple[System, BuildArtifacts]:
     actuator_groups = _build_actuators(
         config, joint_groups, group_of_joint, index_in_group, f32
     )
+    force_groups = _build_forces(config, body_index, mass, f32)
     contact_groups, num_contacts = _build_contact_groups(
         config, body_index, mass, inv_inertia, f32
     )
@@ -125,7 +125,7 @@ def build(config: cfg.Config, device="cuda") -> Tuple[System, BuildArtifacts]:
         num_joints=len(config.joints),
         num_joint_dof=num_joint_dof,
         num_actuators=len(config.actuators),
-        num_forces_dof=0,
+        num_forces_dof=3 * len(config.forces),
         substeps=int(config.substeps),
         dynamics_mode=config.dynamics_mode,
         num_contacts=num_contacts,
@@ -137,14 +137,14 @@ def build(config: cfg.Config, device="cuda") -> Tuple[System, BuildArtifacts]:
         solver=solver,
         joint_groups=tuple(joint_groups),
         actuator_groups=tuple(actuator_groups),
-        force_groups=(),
+        force_groups=tuple(force_groups),
         contact_groups=tuple(contact_groups),
     )
     art = BuildArtifacts(
         config=config,
         body_index=body_index,
         joint_order=joint_order,
-        action_size=num_joint_dof,
+        action_size=num_joint_dof + 3 * len(config.forces),
     )
     return sys, art
 
@@ -250,8 +250,8 @@ def _build_actuators(config, joint_groups, group_of_joint, index_in_group, f32):
     actuators: Dict[tuple, list] = {}
     current_index = 0
     for actuator in config.actuators:
-        if actuator.kind != "torque":
-            raise _not_ported(f"{actuator.kind} actuators")
+        if actuator.kind not in ("torque", "angle"):
+            raise ValueError(f"unknown actuator kind: {actuator.kind}")
         if actuator.joint not in group_of_joint:
             raise RuntimeError(f"joint not found: {actuator.joint}")
         gi = group_of_joint[actuator.joint]
@@ -273,6 +273,36 @@ def _build_actuators(config, joint_groups, group_of_joint, index_in_group, f32):
                 joint_sel=np.array([ji for _, ji, _ in items], dtype=np.int32),
                 act_index=np.array([ai for _, _, ai in items], dtype=np.int32),
                 strength=f32([a.strength for a, _, _ in items]),
+            )
+        )
+    return groups
+
+
+def _build_forces(config, body_index, mass, f32):
+    """A thruster group and a twister group, in config order within each;
+    a force's three action columns follow the actuators' dofs and the
+    forces before it."""
+    dofs = {j.name: len(j.angle_limits) for j in config.joints}
+    current_index = sum(dofs[a.joint] for a in config.actuators)
+    by_kind: Dict[str, list] = {"thruster": [], "twister": []}
+    for f in config.forces:
+        if f.kind not in by_kind:
+            raise ValueError(f"unknown force kind: {f.kind}")
+        by_kind[f.kind].append((f, tuple(range(current_index, current_index + 3))))
+        current_index += 3
+
+    groups = []
+    for kind, items in by_kind.items():
+        if not items:
+            continue
+        body = np.array([body_index[f.body] for f, _ in items], dtype=np.int32)
+        groups.append(
+            actuators_mod.ForceGroup(
+                kind=kind,
+                body=body,
+                act_index=np.array([idx for _, idx in items], dtype=np.int32),
+                strength=f32([f.strength for f, _ in items]),
+                mass=f32(mass[body]),
             )
         )
     return groups

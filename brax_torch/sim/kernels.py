@@ -22,7 +22,11 @@ which compiles the source's spherical joint rows and 3-dof actuators in
 place of the revolute ones.  A scene with two-way capsule-capsule contacts
 (halfcheetah, pusher) defines PBD_CAPCAP, which compiles the capsule-capsule
 narrowphase and the two-way contact passes beside the one-way capsule-plane
-ones; a scene without them compiles as before.
+ones.  A scene with thrusters or twisters (inverted_pendulum,
+inverted_double_pendulum, swimmer) defines PBD_FORCES, which compiles the
+forces' velocity changes, and one with angle actuators (reacherangle)
+PBD_ANGLE, which compiles their PD torque; a scene without a group compiles
+none of its code.
 """
 
 from __future__ import annotations
@@ -53,8 +57,11 @@ BUILD_DIR = cuda_build.BUILD_DIR
 MAX_BODIES, MAX_CONTACTS, MAX_ACT = 16, 32, 32
 WARP = 32
 # pack_tables' record sizes, in floats: globals, body, joint, actuator, a
-# capsule-plane contact and a capsule-capsule contact
-G_SIZE, B_SIZE, J_SIZE, A_SIZE, C_SIZE, CC_SIZE = 9, 14, 33, 1, 6, 16
+# capsule-plane contact, a capsule-capsule contact and a force
+G_SIZE, B_SIZE, J_SIZE, A_SIZE, C_SIZE, CC_SIZE, F_SIZE = 9, 14, 33, 1, 6, 16, 2
+# a force's int record: body, kind (FORCE_KINDS' index), an action column per axis
+F_INT = 5
+FORCE_KINDS = ("thruster", "twister")
 # the capsule-capsule record's fields (pbd_step.cu's CC_* offsets)
 CC_END_A, CC_OFF_A, CC_RADIUS_A, CC_END_B, CC_OFF_B, CC_RADIUS_B = 0, 3, 6, 7, 10, 13
 CC_FRICTION, CC_ELASTICITY = 14, 15
@@ -82,10 +89,13 @@ def unsupported_features(sys: System, n_act: int = 0) -> List[str]:
     if len({g.kind for g in sys.joint_groups}) > 1:
         missing.append("revolute and spherical joints in one System")
     for a in sys.actuator_groups:
-        if a.kind != "torque":
+        if a.kind not in ("torque", "angle"):
             missing.append(f"{a.kind} actuators")
-    if sys.force_groups:
-        missing.append("thruster/twister forces")
+        elif a.kind == "angle" and sys.joint_groups[a.group_index].kind != "revolute":
+            missing.append(f"angle actuators on {sys.joint_groups[a.group_index].kind} joints")
+    for f in sys.force_groups:
+        if f.kind not in FORCE_KINDS:
+            missing.append(f"{f.kind} forces")
     for c in sys.contact_groups:
         if isinstance(c, colliders_mod.CapsulePlane):
             if not c.com.one_way:
@@ -142,10 +152,13 @@ def pack_tables(sys: System) -> Tuple[np.ndarray, np.ndarray]:
     and contact records in the float table: a capsule-plane contact's is
     C_SIZE floats (end[3], radius, friction, elasticity), a capsule-capsule
     one's CC_SIZE (end_a[3], off_a[3], radius_a, end_b[3], off_b[3],
-    radius_b, friction, elasticity: the CC_* offsets); joint (parent,
-    child), actuator (joint, an action column per dof, -1 for a padded dof
-    and past the joint's dofs) and contact (group, body a, body b) records
-    in the int table.  Contacts are listed group by group.
+    radius_b, friction, elasticity: the CC_* offsets) and force records
+    (strength, mass) in the float table; joint (parent, child), actuator
+    (joint, an action column per dof, -1 for a padded dof and past the
+    joint's dofs), contact (group, body a, body b) and force (body, kind:
+    0 thruster, 1 twister, three action columns, unclipped: the kernel
+    clips them to the action's width) records in the int table.  Contacts
+    are listed group by group, forces group by group after them.
     """
     f64 = lambda x: np.asarray(x.detach().cpu().numpy() if isinstance(x, Tensor) else x,
                                dtype=np.float64)
@@ -195,6 +208,11 @@ def pack_tables(sys: System) -> Tuple[np.ndarray, np.ndarray]:
             for e in range(end.shape[1]):
                 fl += [*end[p, e], radius[p], friction[p], elasticity[p]]
                 il += [gi, int(c.com.body_a[p]), int(c.com.body_b[p])]
+    for f in sys.force_groups:
+        strength, mass = f64(f.strength), f64(f.mass)
+        for k in range(f.n):
+            fl += [strength[k], mass[k]]
+            il += [int(f.body[k]), FORCE_KINDS.index(f.kind), *(int(c) for c in f.act_index[k])]
     return np.asarray(fl, dtype=np.float32), np.asarray(il, dtype=np.int32)
 
 
@@ -208,15 +226,16 @@ class Plan:
     """How the generated kernel lays out one System.
 
     An env spreads over `lanes` lanes (a power of two, at least each of
-    nb, nj, na and nc): lane b owns body b, lane j computes joint j, lane k
-    actuator k, lane c contact c.  A block is one warp of `envs_per_block`
-    envs.  Each body lane gathers, in this order, from the joints where it
+    nb, nj, na, nc and nf): lane b owns body b, lane j computes joint j,
+    lane k actuator k, lane c contact c; force f's record sits at lane f.
+    A block is one warp of `envs_per_block` envs.  Each body lane gathers, in this order, from the joints where it
     is the child and then the parent (joint order), from the actuators whose
     joint touches it (actuator order, sign +1 parent, -1 child) and, per
     contact group, from the contacts where it is body a and then from the
     two-way contacts where it is body b (contact order each), as the JAX
-    package's scatter adds a group's body-a updates before its body-b ones.
-    A scene without contacts has one empty group.
+    package's scatter adds a group's body-a updates before its body-b ones,
+    and the forces on it (force order).  A scene without contacts has one
+    empty group.
     """
 
     nb: int
@@ -239,10 +258,23 @@ class Plan:
     body_actuators: Tuple[Tuple[Tuple[int, int], ...], ...]
     body_contacts: Tuple[Tuple[Tuple[int, ...], ...], ...]
     body_contacts_b: Tuple[Tuple[Tuple[int, ...], ...], ...]  # two-way, body b side
+    act_angle: Tuple[bool, ...]  # an angle (not a torque) actuator
+    nf: int
+    force_twister: Tuple[bool, ...]
+    force_col: Tuple[Tuple[int, int, int], ...]  # unclipped
+    body_forces: Tuple[Tuple[int, ...], ...]
 
     @property
     def capcap(self) -> bool:
         return any(self.contact_capcap)
+
+    @property
+    def angle(self) -> bool:
+        return any(self.act_angle)
+
+    @property
+    def forces(self) -> bool:
+        return self.nf > 0
 
     @property
     def ng(self) -> int:
@@ -250,7 +282,9 @@ class Plan:
 
     @functools.cached_property
     def last_act_col(self) -> int:
-        """The highest action column an actuator reads, -1 for none."""
+        """The highest action column an actuator reads, -1 for none.  A
+        force's columns are clipped to the action's width, as the JAX
+        package's jnp path clips them, so they are not counted here."""
         return max((c for cols in self.act_col for c in cols), default=-1)
 
     @property
@@ -268,6 +302,11 @@ class Plan:
     def width_b(self) -> int:
         """KGB: the longest body-b contact list, at least 1."""
         return _longest([x for g in self.body_contacts_b for x in g])
+
+    @property
+    def width_f(self) -> int:
+        """KF: the longest per-body force list, at least 1."""
+        return _longest(self.body_forces)
 
 
 def _longest(lists) -> int:
@@ -288,15 +327,16 @@ def plan(sys: System) -> Plan:
     nj = sum(g.n for g in sys.joint_groups)
     na = sum(a.n for a in sys.actuator_groups)
     nc = sum(_n_contacts(c) for c in sys.contact_groups)
+    nf = sum(f.n for f in sys.force_groups)
     a_int = 1 + MAX_DOF
-    joints = itab[:2 * nj].reshape(nj, 2)
-    acts = itab[2 * nj:2 * nj + a_int * na].reshape(na, a_int)
-    contacts = itab[2 * nj + a_int * na:].reshape(nc, 3)
-    lanes = _next_pow2(max(nb, nj, na, nc, 1))
+    at = np.cumsum([0, 2 * nj, a_int * na, 3 * nc, F_INT * nf])
+    joints, acts, contacts, forces = (itab[at[i]:at[i + 1]].reshape(-1, size)
+                                      for i, size in enumerate((2, a_int, 3, F_INT)))
+    lanes = _next_pow2(max(nb, nj, na, nc, nf, 1))
     if lanes > WARP:
         raise NotImplementedError(
             f"the CUDA PBD step spreads an env over at most {WARP} lanes; this scene needs "
-            f"{lanes} (nb {nb}, nj {nj}, na {na}, nc {nc})")
+            f"{lanes} (nb {nb}, nj {nj}, na {na}, nc {nc}, nf {nf})")
     parent, child = joints[:, 0].tolist(), joints[:, 1].tolist()
     groups = max(len(sys.contact_groups), 1)
     capcap = tuple(_is_capcap(c) for c in sys.contact_groups for _ in range(_n_contacts(c)))
@@ -323,6 +363,11 @@ def plan(sys: System) -> Plan:
             for b in range(nb)),
         body_contacts=listed(1, False),
         body_contacts_b=listed(2, True),
+        act_angle=tuple(a.kind == "angle" for a in sys.actuator_groups for _ in range(a.n)),
+        nf=nf,
+        force_twister=tuple(bool(k) for k in forces[:, 1].tolist()),
+        force_col=tuple(tuple(row) for row in forces[:, 2:].tolist()),
+        body_forces=tuple(tuple(f for f in range(nf) if forces[f, 0] == b) for b in range(nb)),
     )
     sys.__dict__["_pbd_plan"] = p
     return p
@@ -389,6 +434,7 @@ def scene_header(sys: System) -> str:
         size = CC_SIZE if is_cc else C_SIZE
         (capcaps if is_cc else contacts)[c] = ftab[start:start + size]
         start += size
+    forces = ftab[start:].reshape(-1, F_SIZE)
     g = glob[0]
     defines = {
         "PBD_NB": p.nb, "PBD_NJ": p.nj, "PBD_NA": p.na, "PBD_NC": p.nc, "PBD_NG": p.ng,
@@ -404,6 +450,10 @@ def scene_header(sys: System) -> str:
         parts.append("#define PBD_SPHERICAL 1\n")
     if p.capcap:
         parts.append(f"#define PBD_CAPCAP 1\n#define PBD_KGB {p.width_b}\n")
+    if p.forces:
+        parts.append(f"#define PBD_FORCES 1\n#define PBD_NF {p.nf}\n#define PBD_KF {p.width_f}\n")
+    if p.angle:
+        parts.append("#define PBD_ANGLE 1\n")
     parts += [
         _lane_floats("BODY_F", bodies, L),
         _lane_floats("JOINT_F", joints, L),
@@ -436,6 +486,15 @@ def scene_header(sys: System) -> str:
             _lane_ints("CONTACT_CAPCAP", [int(x) for x in p.contact_capcap], L, 0),
             f"static __device__ const int BODY_CON_B[{p.ng}][{kgb}][{L}] = {{{con_b}}};\n",
         ]
+    if p.forces:
+        parts += [
+            _lane_floats("FORCE_F", forces, L),
+            _lane_int_rows("FORCE_COL", _list_rows(p.force_col, 3), L, 0),
+            _lane_ints("FORCE_TWISTER", [int(x) for x in p.force_twister], L, 0),
+            _lane_int_rows("BODY_FORCE", _list_rows(p.body_forces, p.width_f), L, -1),
+        ]
+    if p.angle:
+        parts.append(_lane_ints("ACT_ANGLE", [int(x) for x in p.act_angle], L, 0))
     return "".join(parts)
 
 
@@ -528,11 +587,15 @@ def _zero_dq(qp: QP) -> DQ:
 
 
 def _half_substep(sys: System, qp: QP, act: Tensor) -> QP:
-    """Actuator and joint-damping impulses, the kinetic step and the joint
-    position projection: what both half-substeps share."""
+    """Actuator, force and joint-damping impulses, the kinetic step and the
+    joint position projection: what both half-substeps share."""
     dp_a = sum((actuators_mod.apply(a, sys.joint_groups[a.group_index], qp, act, sys.nb)
                 for a in sys.actuator_groups), _zero_dp(qp))
     dp_j = sum((joints_mod.damp(g, qp, sys.nb) for g in sys.joint_groups), _zero_dp(qp))
+    if sys.force_groups:
+        dp_f = sum((actuators_mod.force_apply(f, qp, act, sys.nb) for f in sys.force_groups),
+                   _zero_dp(qp))
+        dp_a = dp_a + dp_f
     qp = sys.integrator.update_acc(qp, dp_a + dp_j)
     qp = sys.integrator.kinetic(qp)
     dq_j = sum((joints_mod.pbd_apply(g, qp, sys.nb) for g in sys.joint_groups), _zero_dq(qp))
@@ -609,6 +672,8 @@ def pbd_step_launch(sys: System, pos: Tensor, rot: Tensor, vel: Tensor, ang: Ten
     p = plan(sys)
     if p.last_act_col >= n_act:
         raise ValueError(f"act has {n_act} columns; the actuators read column {p.last_act_col}")
+    if p.forces and n_act < 1:
+        raise ValueError("act has no column for the forces to read")
 
     outs = tuple(torch.empty((n, nb, c), device=device, dtype=torch.float32)
                  for c in (3, 4, 3, 3, 3, 3))

@@ -48,7 +48,7 @@ class System:
     solver: colliders_mod.SolverParams = None
     joint_groups: Tuple[joints_mod.JointGroup, ...] = ()
     actuator_groups: Tuple[actuators_mod.ActuatorGroup, ...] = ()
-    force_groups: Tuple[Any, ...] = ()
+    force_groups: Tuple[actuators_mod.ForceGroup, ...] = ()
     contact_groups: Tuple[Any, ...] = ()  # CapsulePlane and CapsuleCapsule groups
 
     @property
@@ -118,7 +118,7 @@ def _classes():
         c.__name__: c
         for c in (
             System, Integrator, colliders_mod.SolverParams, joints_mod.JointGroup,
-            actuators_mod.ActuatorGroup, colliders_mod.GroupCommon,
+            actuators_mod.ActuatorGroup, actuators_mod.ForceGroup, colliders_mod.GroupCommon,
             colliders_mod.CapsulePlane, colliders_mod.CapsuleCapsule,
         )
     }

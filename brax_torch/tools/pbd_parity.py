@@ -1,6 +1,7 @@
 """The rules that hold the v1 PBD kernel (`kernels.pbd_step`) to its plain
-twin (`kernels.pbd_step_plain`) on the same inputs, and the states of v1
-halfcheetah and pusher whose two-way capsule-capsule pairs overlap.
+twin (`kernels.pbd_step_plain`) on the same inputs, the states of v1
+halfcheetah and pusher whose two-way capsule-capsule pairs overlap, and the
+physics actions of the thruster and angle-actuator scenes.
 
 `chip_smoke.py` and the tests (`tests/test_torch_cuda.py` on the card,
 `tests/test_torch_pbd_launch.py` and `tests/test_torch_halfcheetah.py` on
@@ -352,3 +353,36 @@ def capcap_share(sys_, qp):
     pens = [g.contact(qp.take(g.com.body_a), qp.take(g.com.body_b)).penetration
             for g in sys_.contact_groups if isinstance(g, colliders.CapsuleCapsule)]
     return float((torch.cat([p.flatten(1) for p in pens], dim=1) > 0).any(dim=1).float().mean())
+
+
+# the scenes without contacts (thrusters: the inverted pendulums, swimmer;
+# angle actuators: reacherangle; reacher), and the width of each one's
+# physics action: the env's, and swimmer's 9 viscosity columns after its 2
+PHYSICS_ACT = {"inverted_pendulum": 1, "inverted_double_pendulum": 1, "swimmer": 11,
+               "reacherangle": 2, "reacher": 2}
+
+
+def physics_actions(name, n, gen, device):
+    """(n, PHYSICS_ACT[name]) physics actions, uniform in [-1, 1];
+    reacherangle's in degrees, +-300, past its joints' +-180 degree limits,
+    so that the target's clip acts; swimmer's viscosity columns +-5, the
+    drag's clip."""
+    act = torch.rand((n, PHYSICS_ACT[name]), generator=gen, device=device) * 2 - 1
+    if name == "reacherangle":
+        act = act * 300.0
+    if name == "swimmer":
+        act = torch.cat([act[:, :2], act[:, 2:] * 5.0], dim=-1)
+    return act
+
+
+def force_scene_states(name, env, n, seed, device):
+    """{state: (qp, act)} of a scene of PHYSICS_ACT at n envs: a reset of
+    `env` and 10 twin steps after it on `physics_actions`, each with one
+    more action."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    act = lambda: physics_actions(name, n, gen, device)
+    reset = env.reset(gen).qp
+    settled = reset
+    for _ in range(10):
+        settled, _ = kernels.pbd_step_plain(env.sys, settled, act())
+    return {STATES[0]: (reset, act()), STATES[1]: (settled, act())}

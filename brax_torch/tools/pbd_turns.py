@@ -9,12 +9,14 @@ this package's scene header in front (`kernels.scene_header`), as this
 package compiles its own, so it must read the same header and export the
 same C interface (`brax_pbd_step`, `brax_pbd_step_sizes`,
 `brax_pbd_step_occupancy`).  For each scene (default: ant, humanoid,
-humanoidstandup) both kernels step the same 4096 envs, 10 twin steps after
-a reset (in contact), and the first 2048 and 128 of them: the largest
-difference of their outputs (0: the same bits), and their time per launch
-replayed from a CUDA graph of CALLS launches, in turns (other, this, this,
-other).  Prints a line per scene and batch, the card's name and power
-limit, and a last line `RESULT {...}`.
+humanoidstandup, halfcheetah, pusher) both builds' SASS instructions are
+compared (cuobjdump; the same code when equal), and both kernels step the
+same 4096 envs, 10 twin steps after a reset (in contact), and the first
+2048 and 128 of them: the largest difference of their outputs (0: the
+same bits), and their time per launch replayed from a CUDA graph of CALLS
+launches, in turns (other, this, this, other).  Prints a line per scene
+and batch, the card's name and power limit, and a last line
+`RESULT {...}`.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from brax_torch import cuda_build, envs
 from brax_torch.sim import kernels
 from brax_torch.tools import probe_overhead as probe
 
-SCENES = ("ant", "humanoid", "humanoidstandup")
+SCENES = ("ant", "humanoid", "humanoidstandup", "halfcheetah", "pusher")
 BATCHES = (4096, 2048, 128)
 CALLS = 20
 OUTPUTS = ("pos", "rot", "vel", "ang", "contact_vel", "contact_ang")
@@ -93,7 +95,10 @@ def main(argv) -> dict:
             report = cuda_build.library_path(src).with_suffix(".ptxas.txt").read_text()
             print(f"{name} {side}: " + " ".join(line.strip() for line in report.splitlines()
                                                if "registers" in line or "spill" in line))
-        result["scenes"][name] = rec = {}
+        same_sass = (cuda_build.sass(cuda_build.library_path(pairs[name][0]))
+                     == cuda_build.sass(cuda_build.library_path(pairs[name][1])))
+        print(f"{name}: the same SASS instructions in both builds: {same_sass}")
+        result["scenes"][name] = rec = {"same_sass": same_sass}
         for n in BATCHES:
             ins = tuple(t[:n].contiguous() for t in ins_all)
             outs = {side: tuple(torch.empty((n, sys_.num_bodies, c), device="cuda")

@@ -4,8 +4,9 @@
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds brax_torch/csrc/pbd_step.cu with nvcc (sm_90a) for the v1 ant's,
-   humanoid's, humanoidstandup's, halfcheetah's and pusher's Systems (each
-   scene's header in front,
+   humanoid's, humanoidstandup's, halfcheetah's, pusher's,
+   inverted_pendulum's, inverted_double_pendulum's, swimmer's,
+   reacherangle's and reacher's Systems (each scene's header in front,
    brax_torch.sim.kernels.kernel_source) and prints ptxas's register and
    spill reports and the launches (lanes per env, envs per block, resident
    blocks per SM, waves);
@@ -64,6 +65,20 @@
    10,240-row minibatches); PPO at DEFAULT_PPO_PARAMS["halfcheetah"] for 2
    training steps and one evaluation of 128 envs, with exact launch counts
    (per training step 160 PBD, 928 fused forward, 512 backward);
+9c. the v1 scenes without contacts: the PBD kernel's thruster group
+   (PBD_FORCES: inverted_pendulum and inverted_double_pendulum, no
+   actuators, and swimmer), its angle actuators (PBD_ANGLE: reacherangle)
+   and reacher, each held against the twin at 4096 envs from a reset and
+   after 10 twin steps with the rule of step 3, on its physics actions
+   (inverted_pendulum's real 1-wide action, swimmer's 11 columns,
+   reacherangle's targets past its joints' limits); the main paths
+   envs.create(name, batch_size=4096) of swimmer (200 steps, profiled) and
+   the other four (50 each), one launch per step; the kernel timed as in
+   step 5 beside its bound; PPO at DEFAULT_PPO_PARAMS["reacher"]
+   (action_repeat 4) for 2 training steps and one evaluation of 128 envs,
+   with exact launch counts (per training step 800 PBD, 968 fused forward,
+   512 backward) and its env-steps/s (scripts/profile_ppo_step.py profiles
+   its training step apart: the trace's processing takes minutes);
 10. holds the generalized-step kernel (brax_torch/csrc/gen_step.cu, built
    for the v2 ant) against its plain version at 4096 envs from a state 10
    plain env steps after reset, at one frame and at ant's five, with the
@@ -123,7 +138,8 @@ from brax_torch.sim import kernels
 from brax_torch.tools import probe_overhead as probe
 from brax_torch.tools.pbd_parity import (MAX_OUTLIERS, PERTURBED_COPIES, ROUNDING_NOISE,
                                          RULES, STATES, TOLERANCE, capcap_share, capcap_state,
-                                         contact_share, hold_capcap, max_errors, one_pass)
+                                         contact_share, force_scene_states, hold_capcap,
+                                         max_errors, one_pass)
 from brax_torch.training import fused_mlp
 from brax_torch.training.agents.ppo import networks as ppo_networks
 from brax_torch.training.agents.ppo import train as ppo
@@ -212,6 +228,15 @@ CAPCAP_LABEL = {"halfcheetah": "v1 halfcheetah", "pusher": "v1 pusher"}
 CAPCAP_ENV_STEPS = {"halfcheetah": MAIN_STEPS, "pusher": 50}
 CAPCAP_OBS = {"halfcheetah": 18, "pusher": 23}
 PPO_HALFCHEETAH_STEPS = 2
+# the v1 scenes without contacts: thrusters (the inverted pendulums and
+# swimmer, PBD_FORCES), angle actuators (reacherangle, PBD_ANGLE) and reacher
+FORCE_SCENES = ("inverted_pendulum", "inverted_double_pendulum", "swimmer", "reacherangle",
+                "reacher")
+FORCE_ENV_STEPS = {"inverted_pendulum": 50, "inverted_double_pendulum": 50, "swimmer": MAIN_STEPS,
+                   "reacherangle": 50, "reacher": 50}
+FORCE_OBS = {"inverted_pendulum": 4, "inverted_double_pendulum": 8, "swimmer": 8,
+             "reacherangle": 11, "reacher": 11}
+PPO_REACHER_STEPS = 2
 # the PBD kernel's batch sizes: PPO's eval, PPO's training batch, env.step's
 PBD_TIMING_ENVS = (PPO_EVAL_ENVS, 2048, N_ENVS)
 PROFILE_EPISODE = 10
@@ -261,9 +286,11 @@ class OpCount(TorchDispatchMode):
 
 def pbd_bound(sys_, qp, act):
     """(bound_ms, bound_by, ops, bytes, bytes_ms, ops_ms) of one PBD launch on
-    these inputs: the twin's operations (OpCount) at the fp32 rate against
-    the bytes moved (13 floats in and 19 out per body, the actions, the
-    scene's tables) at the HBM rate."""
+    these inputs: the twin's operations (OpCount: the thrusters' and
+    twisters' multiplies, divisions and index_add, the angle actuators'
+    clamp and PD arithmetic among them) at the fp32 rate against the bytes
+    moved (13 floats in and 19 out per body, the actions, the scene's
+    tables) at the HBM rate."""
     counter = OpCount()
     with counter:
         kernels.pbd_step_plain(sys_, qp, act)
@@ -809,7 +836,7 @@ def check_ppo_run(label, metrics, recorder, policy_params, launches, want):
     return min(moved.values())
 
 
-def profile_training_step(fused, environment="ant"):
+def profile_training_step(fused, environment="ant", preset="ant"):
     """Device time, device-op count and top kernels of the second of two
     training steps (the host range "ppo/training_step", which ends in a
     synchronise), and the host time of its rollout and SGD ranges.
@@ -820,7 +847,8 @@ def profile_training_step(fused, environment="ant"):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run_ppo(fused, steps=2, environment=environment, episode_length=PROFILE_EPISODE)
+        run_ppo(fused, steps=2, environment=environment, preset=preset,
+                episode_length=PROFILE_EPISODE)
     events = prof.events()
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     ranges = lambda name: sorted((e for e in events if e.name == name and e.device_type == cpu),
@@ -1141,6 +1169,99 @@ def capcap_paths(tag, phase, c_envs, checks, fused_plans, times, bounds):
             "per_step": per_step_c, "fused_ms": c_fused_ms, "seconds": c_ppo_s}
 
 
+def force_paths(tag, phase, f_envs):
+    """The phases of the v1 scenes without contacts (the PBD kernel's
+    thruster group, PBD_FORCES: inverted_pendulum, inverted_double_pendulum,
+    swimmer; its angle actuators, PBD_ANGLE: reacherangle; reacher): the
+    kernel against the twin per scene at N_ENVS envs from a reset and after
+    10 twin steps on the scene's physics actions (pbd_parity.physics_actions:
+    inverted_pendulum's real 1-wide action, swimmer's 11 columns,
+    reacherangle's targets past its joints' limits) by the rounding rule;
+    the main paths (env.step of each, swimmer's profiled, exact launch
+    counts); the kernel's timings and bound; and PPO at the reacher recipe
+    (action_repeat 4) for PPO_REACHER_STEPS training steps and one
+    evaluation, with exact launch counts.  A profile of its training step
+    takes minutes of the profiler's processing (~137k device ops a step):
+    scripts/profile_ppo_step.py runs it apart."""
+    device = DEVICE
+    phase("v1 thruster and angle-actuator scenes: pbd_step parity")
+    f_scene = {}
+    for name, f_env in f_envs.items():
+        f_sys = f_env.sys
+        gen = torch.Generator(device=device).manual_seed(7)
+        checks_f = {}
+        for state, (qp, act) in force_scene_states(name, f_env, N_ENVS, 0, device).items():
+            print(f"parity state: {name}, {N_ENVS} envs, {state}, action {tuple(act.shape)}")
+            errs_f, inside_f, outliers_f = max_errors(f_sys, qp, act, gen, f"{name} {state} ")
+            checks_f[state] = {"max_abs_err_by_field": errs_f,
+                               "max_abs_err_within_tolerance_by_field": inside_f,
+                               "outlier_envs_decided_by_rounding": outliers_f,
+                               "action_columns": act.shape[1]}
+        f_scene[name] = {"sys": f_sys, "qp": qp, "act": act, "checks": checks_f}
+
+    phase("v1 thruster and angle-actuator scenes: main paths")
+    f_main = {}
+    for name, steps in FORCE_ENV_STEPS.items():
+        f_env, f_state, f_act_gen, f_main[name] = v1_main_path(
+            tag, name, steps, FORCE_OBS[name], warm=20 if steps == MAIN_STEPS else 10)
+        if name == "swimmer":
+            f_state, f_main[name]["profile"] = profile_env_step(tag, name, f_env, f_state,
+                                                                f_act_gen)
+
+    phase("v1 thruster and angle-actuator scenes: pbd_step timings")
+    for name, r in f_scene.items():
+        f_sys, qp, act = r["sys"], r["qp"], r["act"]
+        b = pbd_bound(f_sys, qp, act)
+        r["bound"] = dict(zip(("bound_ms", "bound_by", "ops", "bytes"), b[:4]))
+        r["plain_ms"] = cuda_ms(lambda: kernels.pbd_step_plain(f_sys, qp, act), reps=5,
+                                warmup=1)
+        r["ms_by_envs"] = pbd_timings(tag, f_sys, qp, act, b[0] / N_ENVS, name)
+        print(f"bound {tag}: pbd_step {name} at {N_ENVS} envs: {b[3]} bytes -> {b[4]:.5f} ms at "
+              f"3.35 TB/s; {b[2]} fp32 ops (the twin's, counted) -> {b[5]:.5f} ms at 67 "
+              f"TFLOP/s; plain twin {r['plain_ms']:.3f} ms/step")
+
+    phase("v1 reacher: PPO")
+    p_r = recipe("reacher")
+    rollout_r, sgd_r, eval_r = launch_plan(p_r)
+    per_step_r = {"pbd_step": rollout_r * p_r["action_repeat"],
+                  "fused_mlp_fwd": rollout_r + 3 * sgd_r, "fused_mlp_bwd": 2 * sgd_r}
+    if per_step_r != {"pbd_step": 800, "fused_mlp_fwd": 968, "fused_mlp_bwd": 512}:
+        raise AssertionError(f"reacher recipe launches per training step {per_step_r}")
+    if (env_steps_per_training_step(p_r), eval_r) != (1_638_400, 250):
+        raise AssertionError(f"reacher recipe env steps per training step "
+                             f"{env_steps_per_training_step(p_r)}, eval steps {eval_r}")
+    want_r = dict(zip(("fused_mlp_fwd", "fused_mlp_bwd", "pbd_step"),
+                      expected_launches(p_r, PPO_REACHER_STEPS)))
+    recorder = InitRecorder()
+    kernels.pbd_step_launch.launches = 0
+    fused_mlp.chain_fwd.launches = fused_mlp.chain_bwd.launches = 0
+    t0 = time.perf_counter()
+    _, (_, policy_params), r_ppo = run_ppo(True, PPO_REACHER_STEPS, environment="reacher",
+                                           preset="reacher", network_factory=recorder.factory)
+    torch.cuda.synchronize()
+    r_ppo_s = time.perf_counter() - t0
+    r_launches = {"fused_mlp_fwd": fused_mlp.chain_fwd.launches,
+                  "fused_mlp_bwd": fused_mlp.chain_bwd.launches,
+                  "pbd_step": kernels.pbd_step_launch.launches}
+    moved = check_ppo_run("PPO reacher", r_ppo, recorder, policy_params, r_launches, want_r)
+    widths = (recorder.initial["policy"]["hidden_0.kernel"].shape[0],
+              recorder.initial["policy"]["hidden_4.kernel"].shape[1])
+    if widths != (FORCE_OBS["reacher"], 4):
+        raise AssertionError(f"the reacher policy maps {widths[0]} inputs to {widths[1]}")
+    print(f"main path PPO reacher: {PPO_REACHER_STEPS} training steps at the reacher recipe "
+          f"(num_envs {p_r['num_envs']}, batch {p_r['batch_size']} x {p_r['num_minibatches']} "
+          f"minibatches, unroll {p_r['unroll_length']}, action_repeat {p_r['action_repeat']}, "
+          f"{p_r['num_updates_per_batch']} updates) + one eval of {PPO_EVAL_ENVS} envs in "
+          f"{r_ppo_s:.1f} s; launches {r_launches} (as expected; per training step "
+          f"{per_step_r}); total_loss {r_ppo['training/total_loss']:.5g}, eval/episode_reward "
+          f"{r_ppo['eval/episode_reward']:.5g}; every parameter moved (smallest max change "
+          f"{moved:.3e})")
+    print(f"timing {tag}: PPO reacher training env-steps/s over step 2 (host clock, fused_mlp "
+          f"on): {r_ppo['training/sps_after_first']:.1f}")
+    return {"scene": f_scene, "main": f_main, "launches": r_launches, "ppo": r_ppo,
+            "per_step": per_step_r, "seconds": r_ppo_s}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -1162,15 +1283,18 @@ def main():
               for name in HUMANOID_SCENES}
     c_envs = {name: envs.create(name, episode_length=1000, batch_size=N_ENVS)
               for name in CAPCAP_SCENES}
+    f_envs = {name: envs.create(name, episode_length=1000, batch_size=N_ENVS)
+              for name in FORCE_SCENES}
     built = cuda_build.build(kernels.kernel_source(sys_), fused_mlp.SOURCE, probe.SOURCE,
                              *(kernels.kernel_source(e.sys) for e in h_envs.values()),
                              *(kernels.kernel_source(e.sys) for e in c_envs.values()),
                              *(kernels.kernel_source(one_pass(e.sys)) for e in c_envs.values()),
+                             *(kernels.kernel_source(e.sys) for e in f_envs.values()),
                              *(gen_kernels.kernel_source(s) for s in scenes))
     print(f"build: {', '.join(p.name for p in built.values())} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a, in parallel)")
     print(kernels.ptxas_report(sys_).strip())
-    for e in (*h_envs.values(), *c_envs.values()):
+    for e in (*h_envs.values(), *c_envs.values(), *f_envs.values()):
         print(kernels.ptxas_report(e.sys).strip())
     print(fused_mlp.ptxas_report().strip())
     print(probe.ptxas_report().strip())
@@ -1181,6 +1305,8 @@ def main():
                 for name, e in h_envs.items()}
     c_launch = {name: pbd_launch_report(e.sys, PBD_TIMING_ENVS, CAPCAP_LABEL[name])
                 for name, e in c_envs.items()}
+    f_launch = {name: pbd_launch_report(e.sys, PBD_TIMING_ENVS, name)
+                for name, e in f_envs.items()}
     hgmma = cuda_build.sass_count(built[probe.SOURCE], "HGMMA")
     print(f"probe dot_chain build: {hgmma} HGMMA (wgmma) instructions in "
           f"{built[probe.SOURCE].name} (cuobjdump --dump-sass)")
@@ -1320,6 +1446,8 @@ def main():
     per_step_h, h_fused_ms, h_ppo_s = h["per_step"], h["fused_ms"], h["seconds"]
     c = capcap_paths(tag, phase, c_envs, checks, fused_plans, times, bounds)
     c_scene, c_main, c_launches = c["scene"], c["main"], c["launches"]
+    f = force_paths(tag, phase, f_envs)
+    f_scene, f_main, f_launches = f["scene"], f["main"], f["launches"]
 
     def fused_entry(kind, replaces, function):
         main = ("value", 5120, "bf16")
@@ -1600,6 +1728,10 @@ def main():
                            "total_loss": c["ppo"]["training/total_loss"],
                            "launches": c_launches, "launches_per_training_step": c["per_step"],
                            "seconds": c["seconds"], "fused_ms_per_training_step": c["fused_ms"]},
+        "reacher": {"env_steps_per_s_fused_on": f["ppo"]["training/sps_after_first"],
+                    "eval_episode_reward": f["ppo"]["eval/episode_reward"],
+                    "total_loss": f["ppo"]["training/total_loss"], "launches": f_launches,
+                    "launches_per_training_step": f["per_step"], "seconds": f["seconds"]},
         "card": name_limit}}))
     print(json.dumps({"kernels": [{
         "name": "pbd_step",
@@ -1609,7 +1741,8 @@ def main():
         "replaces_function": "brax_tpu/sim/kernels.py::_build_tile_step",
         "launches": launches,
         "max_abs_err": max([*errs.values()] + [
-            e for r in (*h_scene.values(), *c_scene.values()) for ck in r["checks"].values()
+            e for r in (*h_scene.values(), *c_scene.values(), *f_scene.values())
+            for ck in r["checks"].values()
             if ck.get("rule", "max_errors") == "max_errors"
             for e in ck["max_abs_err_by_field"].values()] + [
             e for r in c_scene.values() for ck in r["checks"].values()
@@ -1641,7 +1774,9 @@ def main():
                              "PPO humanoid": h_launches["pbd_step"],
                              **{f"{CAPCAP_LABEL[name]} env.step": r["launches"]
                                 for name, r in c_main.items()},
-                             "PPO v1 halfcheetah": c_launches["pbd_step"]},
+                             "PPO v1 halfcheetah": c_launches["pbd_step"],
+                             **{f"{name} env.step": r["launches"] for name, r in f_main.items()},
+                             "PPO reacher": f_launches["pbd_step"]},
         "by_scene": {
             "ant": {"ms": kernel_ms, "ms_host_issued": pbd_by_envs[N_ENVS]["host"],
                     "ms_by_envs": pbd_by_envs, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1663,6 +1798,13 @@ def main():
                 "launch": c_launch[name], "main_path": c_main[name],
                 "launches_ppo": c_launches["pbd_step"] if name == "halfcheetah" else None}
                for name, r in c_scene.items()},
+            **{name: {"ms": r["ms_by_envs"][N_ENVS]["graph"],
+                      "ms_host_issued": r["ms_by_envs"][N_ENVS]["host"],
+                      "ms_by_envs": r["ms_by_envs"], "plain_ms": r["plain_ms"], **r["bound"],
+                      "checks": r["checks"], "launch": f_launch[name],
+                      "main_path": f_main[name],
+                      "launches_ppo": f_launches["pbd_step"] if name == "reacher" else None}
+               for name, r in f_scene.items()},
         },
         "card": name_limit,
     },

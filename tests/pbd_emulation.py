@@ -17,7 +17,10 @@ prints the largest difference from `pbd_step_plain` per output for ant (37
 envs), ant with two legs removed (41 envs), humanoid (37 envs),
 humanoidstandup (19 envs), halfcheetah (17 envs) and pusher (9 envs), in
 contact, and for the last two also with their capsule-capsule pairs
-overlapping.
+overlapping; then for the scenes without contacts, inverted_pendulum (37
+envs, its 1-wide action), inverted_double_pendulum (19), swimmer (19, 11
+action columns), reacherangle (21, targets past the joint limits) and
+reacher (17), after 10 twin steps.
 """
 
 import shutil
@@ -69,6 +72,9 @@ int main(int argc, char** argv) {
   FILE* f = fopen(argv[3], "rb");
   for (int q = 0; q < 5; ++q) fread(t[q].data(), 4, t[q].size(), f);
   fclose(f);
+  // 16 NaNs past each input: a planted fault that reads past the action
+  // (reference_clip) reads them, as a kernel on the card reads what lies there
+  for (int q = 0; q < 5; ++q) t[q].resize(t[q].size() + 16, NAN);
   for (int b = 0; b < (n + PBD_ENVS_PER_BLOCK - 1) / PBD_ENVS_PER_BLOCK; ++b) {
     Warp w;
     std::vector<std::thread> lanes;
@@ -132,7 +138,7 @@ def max_errors(sys, qp, act):
 
 
 def main():
-    from brax_torch.tools.pbd_parity import capcap_state
+    from brax_torch.tools.pbd_parity import capcap_state, physics_actions
     from tests.test_torch_pbd_launch import Scene, _config, scene_state
 
     for name, n in (("ant", 37), ("two_legged_ant", 41), ("humanoid", 37),
@@ -144,6 +150,17 @@ def main():
             qp, act = capcap_state(name, env, n, seed=0, device="cpu")
             print(name, n, "envs, capsule-capsule pairs overlapping:",
                   max_errors(env.sys, qp, act))
+    for name, n in FORCE_SCENES.items():
+        env = Scene(_config(name), batch_size=n, device="cpu")
+        qp, act = scene_state(env, n, steps=10, seed=0, device="cpu",
+                              draw=lambda g, name=name, n=n: physics_actions(name, n, g, "cpu"))
+        print(name, n, "envs:", max_errors(env.sys, qp, act))
+
+
+# the scenes without contacts (thrusters, angle actuators; reacher), and the
+# envs of each emulated
+FORCE_SCENES = {"inverted_pendulum": 37, "inverted_double_pendulum": 19, "swimmer": 19,
+                "reacherangle": 21, "reacher": 17}
 
 
 if __name__ == "__main__":

@@ -1,28 +1,44 @@
-"""Planted faults in the PBD kernel's capsule-capsule section, and what the
-parity rules (`brax_torch.tools.pbd_parity`) read on them.
+"""Planted faults in the PBD kernel's capsule-capsule, thruster/twister and
+angle-actuator sections, and what the parity rules
+(`brax_torch.tools.pbd_parity`) read on them.
 
 Each fault is one textual change to `brax_torch/csrc/pbd_step.cu`'s
-PBD_CAPCAP code, made in a copy under the build directory:
+PBD_CAPCAP, PBD_FORCES or PBD_ANGLE code, made in a copy under the build
+directory:
 
 - `b_sign`: body b's position update takes body a's sign;
 - `no_b_gather`: no body gathers its side-b contacts (BODY_CON_B);
 - `b_arm`: the velocity pass takes body a's lever arm for body b's;
 - `b_mass`: the position pass' denominator takes body a's mass for body b's;
-- `no_friction`: the capsule-capsule record's friction is read as 0.
+- `no_friction`: the capsule-capsule record's friction is read as 0;
+- `thruster_sign`: a thruster pushes against its action;
+- `force_body`: each body lane sums the forces of the next body;
+- `reference_clip`: a force's columns are clipped at num_joint_dof +
+  num_forces_dof - 1, as the Pallas body clips them, not to the action's
+  width.  The inverted pendulums' thruster then reads its y and z columns
+  from the next envs' actions and, in the last env, from past the action;
+  their cart moves in x only, so what shows is what lies past the action:
+  the emulation and the card's planted runs put NaNs there;
+- `angle_degrees`: an angle actuator takes its action's degrees as radians;
+- `angle_sign`: an angle actuator pushes with a torque actuator's sign.
 
-The last two are planted in halfcheetah only: pusher's capsule-capsule
-pairs have masses and inverse inertias of 1 on both sides and a friction
-of 0 in its config, so there they change nothing.
+`b_mass` and `no_friction` are planted in halfcheetah only: pusher's
+capsule-capsule pairs have masses and inverse inertias of 1 on both sides
+and a friction of 0 in its config, so there they change nothing.
+`reference_clip` changes nothing in swimmer, whose action is as wide as
+that clip.
 
 On the card,
 
-    python -m tests.pbd_faults
+    python -m tests.pbd_faults [scene ...]
 
 holds this package's kernel and each planted one against the twin at
-4096 envs of v1 halfcheetah and pusher, from the three states
-`chip_smoke.py` holds them in (a reset, 10 twin steps after it, the
-capsule-capsule pairs overlapping; its seeds), over one pass by the
-rounding rule and over the whole step, each by both rules.  It prints per scene,
+4096 envs of each scene (default: v1 halfcheetah, pusher,
+inverted_pendulum, inverted_double_pendulum, swimmer and reacherangle),
+from the states `chip_smoke.py` holds them in (a reset, 10 twin steps
+after it and, for the capsule-capsule scenes, the pairs overlapping; its
+seeds), over one pass and over the whole step, by the rounding rule and,
+for the capsule-capsule scenes, the chaos rule.  It prints per scene,
 state and kernel the outlier count of the rounding rule (with
 `rounding_decided` of up to 16 outliers) and the stray count of the chaos
 rule, then replays the state of `tests/test_torch_cuda.py`'s
@@ -59,12 +75,25 @@ FAULTS = {
     "b_mass": ("float w2 = div_rn(1.0f, cc.m_b) + vdot(cr2, vmul(cr2, cc.ii_b));",
                "float w2 = div_rn(1.0f, cc.m_a) + vdot(cr2, vmul(cr2, cc.ii_b));"),
     "no_friction": ("cc.friction = capcap_f(CC_FRICTION, i);", "cc.friction = 0.0f;"),
+    "thruster_sign": ("else bc.fvel = bc.fvel + d;", "else bc.fvel = bc.fvel - d;"),
+    "force_body": ("const int f = __ldg(&BODY_FORCE[k][i]);",
+                   "const int f = __ldg(&BODY_FORCE[k][(i + 1) % PBD_NB]);"),
+    "reference_clip": ("const int last = n_act - 1;", "const int last = PBD_NJ + 3 * PBD_NF - 1;"),
+    "angle_degrees": ("div_rn(ac.act * 3.14159265358979324f, 180.0f)", "ac.act"),
+    "angle_sign": ("ts = -((target - angle) * ac.strength);",
+                   "ts = (target - angle) * ac.strength;"),
 }
 # the scenes a fault changes anything in
 FAULT_SCENES = {"b_sign": ("halfcheetah", "pusher"), "no_b_gather": ("halfcheetah", "pusher"),
                 "b_arm": ("halfcheetah", "pusher"), "b_mass": ("halfcheetah",),
-                "no_friction": ("halfcheetah",)}
-SCENES = ("halfcheetah", "pusher")
+                "no_friction": ("halfcheetah",),
+                "thruster_sign": ("inverted_pendulum", "swimmer"),
+                "force_body": ("inverted_double_pendulum", "swimmer"),
+                "reference_clip": ("inverted_pendulum", "inverted_double_pendulum"),
+                "angle_degrees": ("reacherangle",), "angle_sign": ("reacherangle",)}
+CAPCAP_SCENES = ("halfcheetah", "pusher")
+FORCE_SCENES = ("inverted_pendulum", "inverted_double_pendulum", "swimmer", "reacherangle")
+SCENES = CAPCAP_SCENES + FORCE_SCENES
 N = 4096
 
 
@@ -90,6 +119,11 @@ def card_step(lib):
 
     def step(sys_, qp, act):
         n, nb = qp.pos.shape[:2]
+        # the action in a buffer with 16 NaNs past it: a planted fault that
+        # reads past the action (reference_clip) reads them
+        padded = torch.full((act.numel() + 16,), float("nan"), device=act.device)
+        padded[:act.numel()] = act.reshape(-1)
+        act = padded[:act.numel()].view(act.shape)
         ins = tuple(t.contiguous() for t in (qp.pos, qp.rot, qp.vel, qp.ang, act))
         outs = tuple(torch.empty((n, nb, c), device=qp.pos.device) for c in (3, 4, 3, 3, 3, 3))
         pbd_turns.launch(lib, ins, outs)
@@ -100,7 +134,11 @@ def card_step(lib):
 
 
 def states(name, env, device):
-    """chip_smoke.py's three states of `name` at N envs, with its seeds."""
+    """chip_smoke.py's states of `name` at N envs, with its seeds: a
+    capsule-capsule scene's three, a thruster or angle-actuator scene's two
+    (`pbd_parity.force_scene_states`)."""
+    if name in FORCE_SCENES:
+        return pp.force_scene_states(name, env, N, 0, device)
     gen = torch.Generator(device=device).manual_seed(0)
     act = lambda: torch.rand((N, env.action_size), generator=gen, device=device) * 2 - 1
     reset = env.reset(gen).qp
@@ -171,7 +209,8 @@ def main(argv):
     device = torch.device("cuda")
     card = cuda_build.card()
     print(card)
-    scenes = {name: envs.create(name, episode_length=1000, batch_size=N) for name in SCENES}
+    scenes = {name: envs.create(name, episode_length=1000, batch_size=N)
+              for name in (argv or SCENES)}
     systems = {(name, pass_): (pp.one_pass(e.sys) if pass_ == "one pass" else e.sys)
                for name, e in scenes.items() for pass_ in ("one pass", "whole step")}
     planted = {f: planted_path(f) for f in FAULTS}
@@ -185,8 +224,10 @@ def main(argv):
         for state, (qp, act) in states(name, env, device).items():
             for pass_ in ("one pass", "whole step"):
                 sys_ = systems[name, pass_]
-                spread = pp.twin_spread(sys_, qp, act)
-                own = pp.twin_own_outside(sys_, qp, act, gen)
+                # the chaos rule's readings for the chaotic capsule-capsule scenes
+                chaotic = name in CAPCAP_SCENES
+                spread = pp.twin_spread(sys_, qp, act) if chaotic else None
+                own = pp.twin_own_outside(sys_, qp, act, gen) if chaotic else None
                 kernels_ = {"kernel": kernels.pbd_step,
                             **{f: card_step(pbd_turns.load(sources[(name, pass_), f]))
                                for f in FAULTS if name in FAULT_SCENES[f]}}
@@ -201,16 +242,17 @@ def main(argv):
                           f"{rec.get('strays')} (passes {rec.get('chaos_rule_passes')}); the "
                           f"twin's own count {own}; max err {rec['max_abs_err_by_field']}",
                           flush=True)
-    # the card test's state: Scene(_config("pusher")), 4097 envs, capcap_state seed 0
-    from tests.test_torch_pbd_launch import Scene, _config
+    if "pusher" in scenes:
+        # the card test's state: Scene(_config("pusher")), 4097 envs, capcap_state seed 0
+        from tests.test_torch_pbd_launch import Scene, _config
 
-    env = Scene(_config("pusher"), batch_size=4097, device=device)
-    qp, act = pp.capcap_state("pusher", env, 4097, 0, device)
-    for pass_, sys_ in (("whole step", env.sys), ("one pass", pp.one_pass(env.sys))):
-        rec = reading(sys_, qp, act, kernels.pbd_step, pp.twin_spread(sys_, qp, act),
-                      torch.Generator(device=device).manual_seed(7), 16)
-        result["readings"][f"pusher 4097 card test | {pass_}"] = rec
-        print(f"pusher 4097 card test | {pass_}: {rec}", flush=True)
+        env = Scene(_config("pusher"), batch_size=4097, device=device)
+        qp, act = pp.capcap_state("pusher", env, 4097, 0, device)
+        for pass_, sys_ in (("whole step", env.sys), ("one pass", pp.one_pass(env.sys))):
+            rec = reading(sys_, qp, act, kernels.pbd_step, pp.twin_spread(sys_, qp, act),
+                          torch.Generator(device=device).manual_seed(7), 16)
+            result["readings"][f"pusher 4097 card test | {pass_}"] = rec
+            print(f"pusher 4097 card test | {pass_}: {rec}", flush=True)
     print(card)
     print("RESULT " + json.dumps(result))
     return result

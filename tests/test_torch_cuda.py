@@ -253,21 +253,29 @@ def test_capcap_env_step_launches_the_kernel_once(cuda):
         assert state.obs.shape == (64, obs) and bool(torch.isfinite(state.obs).all())
 
 
-def _without_capcap(source: str) -> str:
-    """pbd_step.cu with every `#if...` block that names PBD_CAPCAP cut out."""
-    out, depth, cut = [], 0, None
+def _without_blocks(source: str, macros) -> str:
+    """pbd_step.cu with every `#if...` block that names one of `macros` cut
+    out; such a block's `#else` branch stays, without its directives."""
+    out, depth, cut, kept = [], 0, None, None
     for line in source.splitlines(keepends=True):
         directive = line.strip()
         if directive.startswith("#if"):
             depth += 1
-            if cut is None and "PBD_CAPCAP" in directive:
+            if cut is None and any(m in directive for m in macros):
                 cut = depth
+                continue
+        elif directive.startswith("#else") and cut == depth:
+            cut, kept = None, depth
+            continue
+        elif directive.startswith("#endif") and depth in (cut, kept):
+            cut = None if cut == depth else cut
+            kept = None if kept == depth else kept
+            depth -= 1
+            continue
+        elif directive.startswith("#endif"):
+            depth -= 1
         if cut is None:
             out.append(line)
-        if directive.startswith("#endif"):
-            if cut == depth:
-                cut = None
-            depth -= 1
     return "".join(out)
 
 
@@ -277,24 +285,100 @@ def test_scenes_without_capcap_compile_as_without_its_section(cuda, name):
     section: their SASS equals that of a build whose source has every
     PBD_CAPCAP block cut out (the parent's bits and speed are held by
     `python -m brax_torch.tools.pbd_turns`)."""
-    import subprocess
-
     from tests.test_torch_pbd_launch import _system
 
     sys_ = _system(name)
     whole = kernels.kernel_source(sys_)
     cut = whole.with_name(whole.stem + "_without_capcap.cu")
-    cut.write_text(_without_capcap(whole.read_text()))
+    cut.write_text(_without_blocks(whole.read_text(), ("PBD_CAPCAP",)))
     assert "#ifdef PBD_CAPCAP" in whole.read_text() and "#ifdef PBD_CAPCAP" not in cut.read_text()
+    assert _sass(whole) == _sass(cut) != []
 
-    def sass(path):
-        lib = cuda_build.build(path)[path]
-        text = subprocess.run([cuda_build.toolkit("cuobjdump"), "--dump-sass", str(lib)],
-                              capture_output=True, text=True, check=True).stdout
-        return [line.split("*/", 1)[1].strip() for line in text.splitlines()
-                if line.strip().startswith("/*") and "*/" in line]
 
-    assert sass(whole) == sass(cut) != []
+def _sass(source):
+    """The SASS instructions of `source`'s build."""
+    return cuda_build.sass(cuda_build.build(source)[source])
+
+
+# ---------------------------------------------------------------------------
+# thrusters/twisters (PBD_FORCES) and angle actuators (PBD_ANGLE)
+# ---------------------------------------------------------------------------
+
+FORCE_SCENES = ("inverted_pendulum", "inverted_double_pendulum", "swimmer", "reacherangle",
+                "reacher")
+
+
+def _force_state(name, device, n, seed=0):
+    """n envs of a scene without contacts after 10 twin steps on its physics
+    actions (inverted_pendulum's 1-wide, swimmer's 11 columns, reacherangle's
+    targets past the limits), and one more action."""
+    from brax_torch.tools.pbd_parity import physics_actions
+    from tests.test_torch_pbd_launch import Scene, _config, scene_state
+
+    env = Scene(_config(name), batch_size=n, device=device)
+    return env, *scene_state(env, n, steps=10, seed=seed, device=device,
+                             draw=lambda gen: physics_actions(name, n, gen, device))
+
+
+@pytest.mark.parametrize("name", FORCE_SCENES)
+@pytest.mark.parametrize("n", [1, 2, 4097])
+def test_force_and_angle_kernel_matches_twin_by_batch(cuda, name, n):
+    """The thruster and angle-actuator sections on ragged batches (2-4 lanes
+    an env, 8-16 envs a warp), by the rounding rule, one launch each."""
+    env, qp, act = _force_state(name, cuda, n)
+    p = kernels.plan(env.sys)
+    assert p.nc == 0 and p.forces == (name in FORCE_SCENES[:3]) and p.angle == (
+        name == "reacherangle")
+    before = kernels.pbd_step_launch.launches
+    _rounding_rule_holds(env.sys, qp, act, cuda)
+    assert kernels.pbd_step_launch.launches == before + 1
+
+
+def test_zero_contact_zero_actuator_scene_builds_and_launches(cuda):
+    """inverted_pendulum: no contacts, no actuators (PBD_NC 0, PBD_NA 0), 2
+    lanes an env; its 1-wide action read by the thruster's three clipped
+    columns, the same bits as that action repeated to 4 columns; finite."""
+    env, qp, act = _force_state("inverted_pendulum", cuda, 4096)
+    p = kernels.plan(env.sys)
+    assert (p.na, p.nc, p.nf, p.lanes, act.shape[1]) == (0, 0, 1, 2, 1)
+    before = kernels.pbd_step_launch.launches
+    out, info = kernels.pbd_step(env.sys, qp, act)
+    wide, _ = kernels.pbd_step(env.sys, qp, act.repeat(1, 4))
+    torch.cuda.synchronize()
+    assert kernels.pbd_step_launch.launches == before + 2
+    for x, y in zip((out.pos, out.rot, out.vel, out.ang), (wide.pos, wide.rot, wide.vel, wide.ang)):
+        assert torch.equal(x, y) and bool(torch.isfinite(x).all())
+    assert not info.contact.vel.any() and not info.contact.ang.any()
+
+
+def test_force_env_step_launches_the_kernel_once(cuda):
+    from brax_torch import envs
+
+    for name, obs, n_act in (("inverted_pendulum", 4, 1), ("inverted_double_pendulum", 8, 1),
+                             ("swimmer", 8, 2), ("reacherangle", 11, 2), ("reacher", 11, 2)):
+        env = envs.create(name, batch_size=64)
+        state = env.reset(torch.Generator(device=cuda).manual_seed(0))
+        before = kernels.pbd_step_launch.launches
+        for _ in range(3):
+            state = env.step(state, torch.rand((64, n_act), device=cuda) * 2 - 1)
+        assert kernels.pbd_step_launch.launches == before + 3
+        assert state.obs.shape == (64, obs) and bool(torch.isfinite(state.obs).all())
+
+
+@pytest.mark.parametrize("name", ["ant", "humanoid", "humanoidstandup", "halfcheetah", "pusher"])
+def test_scenes_without_forces_or_angle_compile_as_without_their_sections(cuda, name):
+    """The scenes of the earlier groups hold none of the thruster and
+    angle-actuator sections: their SASS equals that of a build whose source
+    has every PBD_FORCES and PBD_ANGLE block cut out."""
+    from tests.test_torch_pbd_launch import _system
+
+    sys_ = _system(name)
+    whole = kernels.kernel_source(sys_)
+    cut = whole.with_name(whole.stem + "_without_forces.cu")
+    cut.write_text(_without_blocks(whole.read_text(), ("PBD_FORCES", "PBD_ANGLE")))
+    assert "#ifdef PBD_FORCES" in whole.read_text() and "#ifdef PBD_ANGLE" in whole.read_text()
+    assert "#ifdef PBD_FORCES" not in cut.read_text() and "PBD_ANGLE)" not in cut.read_text()
+    assert _sass(whole) == _sass(cut) != []
 
 
 # ---------------------------------------------------------------------------

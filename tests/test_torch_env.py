@@ -36,7 +36,7 @@ def test_create_builds_the_wrapper_stack():
 
 def test_create_names_envs_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        envs.create("inverted_pendulum", device="cpu")
+        envs.create("grasp", device="cpu")
 
 
 def test_reset_draws_its_noise_from_the_generator():
@@ -102,7 +102,11 @@ def test_port_imports_no_jax():
                    "envs/assets/humanoid_new.py", "tools/brax_training.py", "envs/halfcheetah.py",
                    "envs/pusher.py", "envs/assets/half_cheetah.py", "envs/assets/pusher.py",
                    "sim/geometry.py", "sim/colliders.py", "tools/pbd_parity.py",
-                   "tools/pbd_turns.py"):
+                   "tools/pbd_turns.py", "envs/inverted_pendulum.py",
+                   "envs/inverted_double_pendulum.py", "envs/swimmer.py", "envs/reacher.py",
+                   "envs/reacherangle.py", "envs/assets/inverted_pendulum.py",
+                   "envs/assets/inverted_double_pendulum.py", "envs/assets/swimmer.py",
+                   "envs/assets/reacher.py", "envs/assets/reacherangle.py"):
         assert REPO / "brax_torch" / module in files, module
     bad = [
         (str(f.relative_to(REPO)), name)
@@ -120,7 +124,9 @@ def test_importing_the_port_loads_no_brax_tpu():
         "brax_torch.v2.generalized.kernels, brax_torch.v2.envs.walker2d, "
         "brax_torch.tools.probe_overhead, brax_torch.tools.brax_training, "
         "brax_torch.envs.halfcheetah, brax_torch.envs.pusher, brax_torch.sim.geometry, "
-        "brax_torch.tools.pbd_parity, brax_torch.tools.pbd_turns; "
+        "brax_torch.tools.pbd_parity, brax_torch.tools.pbd_turns, "
+        "brax_torch.envs.inverted_pendulum, brax_torch.envs.inverted_double_pendulum, "
+        "brax_torch.envs.swimmer, brax_torch.envs.reacher, brax_torch.envs.reacherangle; "
         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('brax_tpu', 'flax', 'optax')))"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -7,8 +7,11 @@ float literals laid out [field][lane].  These tests parse that header and
 hold it to `pack_tables` and to the System, for ant, for ant with two of
 its legs removed (8 lanes per env instead of 16), for the spherical
 scenes humanoid (16 lanes) and humanoidstandup (22 contacts: 32 lanes, an
-env per warp), and for halfcheetah (17 contacts) and pusher (23), whose
-two-way capsule-capsule contacts compile PBD_CAPCAP (32 lanes).  No JAX, no
+env per warp), for halfcheetah (17 contacts) and pusher (23), whose
+two-way capsule-capsule contacts compile PBD_CAPCAP (32 lanes), and for the
+scenes without contacts: inverted_pendulum (2 lanes, no actuator),
+inverted_double_pendulum and swimmer, whose thrusters compile PBD_FORCES,
+reacherangle, whose angle actuators compile PBD_ANGLE, and reacher.  No JAX, no
 card: the kernel itself is held to its twin by tests/test_torch_cuda.py and
 chip_smoke.py, and here, for its lane logic, in an emulation
 (tests/pbd_emulation.py), where faults planted in the capsule-capsule
@@ -27,7 +30,12 @@ from brax_torch.envs.assets.ant import ant_config
 from brax_torch.envs.assets.half_cheetah import halfcheetah_config
 from brax_torch.envs.assets.humanoid_new import humanoid_new_config
 from brax_torch.envs.assets.humanoid_standup import humanoid_standup_config
+from brax_torch.envs.assets.inverted_double_pendulum import inverted_double_pendulum_config
+from brax_torch.envs.assets.inverted_pendulum import inverted_pendulum_config
 from brax_torch.envs.assets.pusher import pusher_config
+from brax_torch.envs.assets.reacher import reacher_config
+from brax_torch.envs.assets.reacherangle import reacherangle_config
+from brax_torch.envs.assets.swimmer import swimmer_config
 from brax_torch.sim import builder, colliders, kernels
 
 from brax_torch.tools.pbd_parity import (TOLERANCE, capcap_share, capcap_state, chaos_rule,
@@ -38,11 +46,16 @@ from tests.torch_parity import one_torch_thread  # noqa: F401
 RAGGED = (1, 17, 128, 2048, 4097)
 LEGS_REMOVED = {"Aux 3", "$ Body 10", "Aux 4", "$ Body 13"}
 JOINTS_REMOVED = {"hip_3", "ankle_3", "hip_4", "ankle_4"}
-SCENES = ["ant", "two_legged_ant", "humanoid", "humanoidstandup", "halfcheetah", "pusher"]
+SCENES = ["ant", "two_legged_ant", "humanoid", "humanoidstandup", "halfcheetah", "pusher",
+          "inverted_pendulum", "inverted_double_pendulum", "swimmer", "reacherangle", "reacher"]
 CAPCAP_SCENES = ("halfcheetah", "pusher")
+FORCE_SCENES = ("inverted_pendulum", "inverted_double_pendulum", "swimmer")
+ANGLE_SCENES = ("reacherangle",)
 # (lanes, envs per block) of each scene's plan
 LANES = {"ant": (16, 2), "two_legged_ant": (8, 4), "humanoid": (16, 2),
-         "humanoidstandup": (32, 1), "halfcheetah": (32, 1), "pusher": (32, 1)}
+         "humanoidstandup": (32, 1), "halfcheetah": (32, 1), "pusher": (32, 1),
+         "inverted_pendulum": (2, 16), "inverted_double_pendulum": (4, 8), "swimmer": (4, 8),
+         "reacherangle": (4, 8), "reacher": (4, 8)}
 
 
 
@@ -67,24 +80,29 @@ class Scene(base.Env):
         raise NotImplementedError
 
 
-def scene_state(env, n, steps, seed, device):
+def scene_state(env, n, steps, seed, device, draw=None):
     """n states of `env` from its default pose with joint noise, after
     `steps` twin steps with random actions (contact-rich after ~10), and
-    one more action."""
+    one more action.  `draw(gen)` draws an action (default: uniform in
+    [-1, 1], env.action_size wide)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     nd = env.sys.num_joint_dof
     noise = lambda: torch.rand((n, nd), generator=gen, device=device) * 0.2 - 0.1
     qp = env.default_qp(joint_angle=env.default_angle() + noise(), joint_velocity=noise())
-    act = lambda: torch.rand((n, env.action_size), generator=gen, device=device) * 2 - 1
+    draw = draw or (lambda g: torch.rand((n, env.action_size), generator=g, device=device) * 2 - 1)
     for _ in range(steps):
-        qp, _ = kernels.pbd_step_plain(env.sys, qp, act())
-    return qp, act()
+        qp, _ = kernels.pbd_step_plain(env.sys, qp, draw(gen))
+    return qp, draw(gen)
 
 
 def _config(name):
     return {"ant": ant_config, "two_legged_ant": two_legged_ant_config,
             "humanoid": humanoid_new_config, "humanoidstandup": humanoid_standup_config,
-            "halfcheetah": halfcheetah_config, "pusher": pusher_config}[name]()
+            "halfcheetah": halfcheetah_config, "pusher": pusher_config,
+            "inverted_pendulum": inverted_pendulum_config,
+            "inverted_double_pendulum": inverted_double_pendulum_config,
+            "swimmer": swimmer_config, "reacherangle": reacherangle_config,
+            "reacher": reacher_config}[name]()
 
 
 def _system(name):
@@ -147,6 +165,13 @@ def test_header_literals_equal_pack_tables(scene):
     for c, is_cc in enumerate(p.contact_capcap):
         assert not (plane if is_cc else capcap)[:, c].any()
         parts.append((capcap if is_cc else plane)[:, c])
+    # the force records, lane f holding force f's
+    if p.forces:
+        forces = _array(header, "FORCE_F")
+        assert forces.shape == (kernels.F_SIZE, p.lanes) and not forces[:, p.nf:].any()
+        parts.append(forces[:, :p.nf].T.reshape(-1))
+    else:
+        assert "FORCE_F" not in header
     np.testing.assert_array_equal(np.concatenate(parts), ftab)
 
 
@@ -183,6 +208,13 @@ def test_header_counts_and_plan(scene):
     assert _has_define(header, "PBD_KGB") == capcap
     if capcap:
         assert int(_define(header, "PBD_KGB")) == p.width_b
+    forces = name in FORCE_SCENES
+    assert p.forces == forces == ("#define PBD_FORCES 1\n" in header)
+    assert _has_define(header, "PBD_NF") == _has_define(header, "PBD_KF") == forces
+    if forces:
+        assert int(_define(header, "PBD_NF")) == p.nf == sum(f.n for f in sys.force_groups)
+        assert int(_define(header, "PBD_KF")) == p.width_f
+    assert p.angle == (name in ANGLE_SCENES) == ("#define PBD_ANGLE 1\n" in header)
     kc, kp, ka, kg = p.widths
     want = {"PBD_NB": p.nb, "PBD_NJ": p.nj, "PBD_NA": p.na, "PBD_NC": p.nc, "PBD_NG": p.ng,
             "PBD_PASSES": sys.substeps // 2, "PBD_LANES": p.lanes,
@@ -226,7 +258,13 @@ def test_actuator_lists_agree_with_the_system(scene):
     assert list(p.act_joint) == joint_of and [list(c) for c in p.act_col] == cols
     header_cols = _array(header, "ACT_COL")  # [dof][lane]
     assert header_cols.shape == (kernels.MAX_DOF, p.lanes)
-    np.testing.assert_array_equal(header_cols[:, :p.na].T, cols)
+    np.testing.assert_array_equal(header_cols[:, :p.na].T,
+                                  np.asarray(cols, dtype=np.int64).reshape(-1, kernels.MAX_DOF))
+    angle = [a.kind == "angle" for a in sys.actuator_groups for _ in range(a.n)]
+    assert list(p.act_angle) == angle
+    if p.angle:
+        flags = _array(header, "ACT_ANGLE")
+        assert flags.tolist() == [int(x) for x in angle] + [0] * (p.lanes - p.na)
     assert (header_cols[:, p.na:] == -1).all()
     acts, signs = _array(header, "BODY_ACT"), _array(header, "BODY_ACT_SIGN")
     for b in range(p.nb):
@@ -245,17 +283,19 @@ def test_contact_lists_agree_with_the_system(scene):
     _, sys, header = scene
     p = kernels.plan(sys)
     per = [_contacts_per_pair(c) for c in sys.contact_groups]
-    body_a = np.concatenate([np.repeat(c.com.body_a, k) for c, k in zip(sys.contact_groups, per)])
-    body_b = np.concatenate([np.repeat(c.com.body_b, k) for c, k in zip(sys.contact_groups, per)])
-    group = np.concatenate([np.full(len(c.com.body_a) * k, g)
-                            for g, (c, k) in enumerate(zip(sys.contact_groups, per))])
-    two_way = np.concatenate([np.full(len(c.com.body_a) * k, not c.com.one_way)
-                              for c, k in zip(sys.contact_groups, per)])
+    # a scene without contacts: empty lists, and one empty group in the header
+    cat = lambda parts, dtype: np.concatenate(list(parts) + [np.zeros(0, dtype)])
+    body_a = cat((np.repeat(c.com.body_a, k) for c, k in zip(sys.contact_groups, per)), int)
+    body_b = cat((np.repeat(c.com.body_b, k) for c, k in zip(sys.contact_groups, per)), int)
+    group = cat((np.full(len(c.com.body_a) * k, g)
+                 for g, (c, k) in enumerate(zip(sys.contact_groups, per))), int)
+    two_way = cat((np.full(len(c.com.body_a) * k, not c.com.one_way)
+                   for c, k in zip(sys.contact_groups, per)), bool)
     np.testing.assert_array_equal(_array(header, "CONTACT_A")[:p.nc], body_a)
     np.testing.assert_array_equal(_array(header, "CONTACT_B")[:p.nc], body_b)
     assert list(p.contact_capcap) == two_way.tolist()
     con = _array(header, "BODY_CON")  # [group][k][lane]
-    assert con.shape[0] == p.ng == len(sys.contact_groups)
+    assert con.shape[0] == p.ng == max(len(sys.contact_groups), 1)
     if p.capcap:
         con_b = _array(header, "BODY_CON_B")
         assert con_b.shape == (p.ng, p.width_b, p.lanes)
@@ -273,6 +313,35 @@ def test_contact_lists_agree_with_the_system(scene):
     assert sorted(c for c in con_b.reshape(-1) if c >= 0) == list(np.flatnonzero(two_way))
 
 
+def test_force_lists_agree_with_the_system(scene):
+    """Force f's record sits at lane f: its body, kind and three action
+    columns as the System lists them, unclipped; each body lane gathers the
+    forces on it in force order.  A scene without forces has no force
+    arrays."""
+    _, sys, header = scene
+    p = kernels.plan(sys)
+    body = [int(b) for f in sys.force_groups for b in f.body]
+    twister = [f.kind == "twister" for f in sys.force_groups for _ in range(f.n)]
+    cols = [tuple(int(c) for c in row) for f in sys.force_groups for row in f.act_index]
+    assert (p.nf, list(p.force_twister), list(p.force_col)) == (len(body), twister, cols)
+    assert [list(x) for x in p.body_forces] == [
+        [f for f in range(p.nf) if body[f] == b] for b in range(p.nb)]
+    names = ("FORCE_F", "FORCE_COL", "FORCE_TWISTER", "BODY_FORCE")
+    if not p.forces:
+        assert not any(name in header for name in names)
+        return
+    strength = np.concatenate([f.strength.numpy() for f in sys.force_groups])
+    mass = np.concatenate([f.mass.numpy() for f in sys.force_groups])
+    records = _array(header, "FORCE_F")
+    np.testing.assert_array_equal(records[:, :p.nf], np.stack([strength, mass]))
+    np.testing.assert_array_equal(_array(header, "FORCE_COL")[:, :p.nf].T, cols)
+    assert _array(header, "FORCE_TWISTER")[:p.nf].tolist() == [int(t) for t in twister]
+    gather = _array(header, "BODY_FORCE")  # [k][lane]
+    assert gather.shape == (p.width_f, p.lanes)
+    for b in range(p.lanes):
+        assert [f for f in gather[:, b] if f >= 0] == (list(p.body_forces[b]) if b < p.nb else [])
+
+
 @pytest.mark.parametrize("n", RAGGED)
 def test_launch_plan_covers_ragged_batches(scene, n):
     _, sys, _ = scene
@@ -280,8 +349,8 @@ def test_launch_plan_covers_ragged_batches(scene, n):
     blocks, threads = kernels.launch_geometry(p, n)
     assert threads == p.lanes * p.envs_per_block == kernels.WARP
     assert blocks * p.envs_per_block >= n > (blocks - 1) * p.envs_per_block
-    assert p.lanes >= max(p.nb, p.nj, p.nc, p.na)
-    assert p.lanes & (p.lanes - 1) == 0 and p.lanes < 2 * max(p.nb, p.nj, p.nc, p.na)
+    assert p.lanes >= max(p.nb, p.nj, p.nc, p.na, p.nf)
+    assert p.lanes & (p.lanes - 1) == 0 and p.lanes < 2 * max(p.nb, p.nj, p.nc, p.na, p.nf)
 
 
 def test_source_path_per_system():
@@ -305,8 +374,8 @@ def test_source_path_per_system():
     ({"collider_cutoff": 4}, ["collider_cutoff"]),
     ({"dynamics_mode": "legacy_spring"}, ["dynamics_mode='legacy_spring'"]),
     ({"scene": "humanoid"}, []),
-    ({"actuator_kind": "angle"}, ["angle actuators"]),
-    ({"force_groups": ("thruster",)}, ["thruster/twister forces"]),
+    ({"scene": "humanoid", "actuator_kind": "angle"}, ["angle actuators on spherical joints"]),
+    ({"scene": "swimmer"}, []),
     ({"num_bodies": 17}, ["17 bodies (the kernel holds 16)"]),
     ({"n_act": 33}, ["33 action columns (the kernel holds 32)"]),
     ({"joint_kind": "spring_spherical"}, ["spring_spherical joints"]),
@@ -317,14 +386,21 @@ def test_source_path_per_system():
     ({"scene": "pusher", "one_way": "CapsuleCapsule"}, ["one-way CapsuleCapsule contacts"]),
     ({"scene": "halfcheetah", "one_way": "CapsulePlane"}, ["two-way CapsulePlane contacts"]),
     ({"scene": "halfcheetah", "actuator_kind": "angle", "box_plane": True},
-     ["angle actuators", "BoxPlane contacts"]),
+     ["BoxPlane contacts"]),
+    ({"scene": "inverted_pendulum"}, []),
+    ({"scene": "reacherangle"}, []),
+    ({"scene": "reacher", "actuator_kind": "spring"}, ["spring actuators"]),
+    ({"scene": "swimmer", "force_kind": "spring"}, ["spring forces"]),
 ])
 def test_unsupported_features_unchanged(change, want):
-    """Spherical joints and two-way capsule-capsule contacts are covered
-    (humanoid's, halfcheetah's and pusher's Systems miss nothing); a spring
-    kind, a System that mixes revolute and spherical groups (which
-    `builder.build` never makes), a one-way capsule-capsule group (grasp's),
-    a two-way capsule-plane one and a box-plane one are not."""
+    """Spherical joints, two-way capsule-capsule contacts, thrusters and
+    angle actuators on revolute joints are covered (humanoid's,
+    halfcheetah's, pusher's, swimmer's, inverted_pendulum's and
+    reacherangle's Systems miss nothing); a spring kind, a System that
+    mixes revolute and spherical groups (which `builder.build` never
+    makes), angle actuators on spherical joints, a one-way capsule-capsule
+    group (grasp's), a two-way capsule-plane one and a box-plane one are
+    not."""
     change = dict(change)
     sys = _system(change.pop("scene", "ant"))
     n_act = change.pop("n_act", 0)
@@ -344,6 +420,9 @@ def test_unsupported_features_unchanged(change, want):
     if "actuator_kind" in change:
         change["actuator_groups"] = (dataclasses.replace(sys.actuator_groups[0],
                                                          kind=change.pop("actuator_kind")),)
+    if "force_kind" in change:
+        change["force_groups"] = (dataclasses.replace(sys.force_groups[0],
+                                                      kind=change.pop("force_kind")),)
     other = dataclasses.replace(sys, **change)
     assert kernels.unsupported_features(other, n_act) == want
     if not n_act:

@@ -15,7 +15,7 @@ from brax_tpu.envs.assets.ant import ant_config as jax_ant_config
 from brax_tpu.sim import builder as jax_builder
 from brax_torch.envs.ant import Ant
 from brax_torch.envs.assets.ant import ant_config
-from brax_torch.sim import builder, initial
+from brax_torch.sim import builder, initial, kernels
 from brax_torch.sim.config import Force
 from brax_torch.sim.system import System, flatten
 from brax_torch.sim.types import QP
@@ -60,14 +60,22 @@ def test_build_raises_on_features_not_ported():
     cfg.joints[0].angle_limits.append((-10.0, 10.0))
     sys, art = builder.build(cfg, device="cpu")
     assert [g.kind for g in sys.joint_groups] == ["spherical"] and art.action_size == 9
+    # thruster forces and angle actuators are built now: a force's action
+    # columns follow the actuators' dofs
     cfg = ant_config()
     cfg.forces = [Force(name="push", body="$ Torso", strength=1.0)]
-    with pytest.raises(NotImplementedError, match="thruster/twister forces"):
-        builder.build(cfg, device="cpu")
+    sys, art = builder.build(cfg, device="cpu")
+    assert sys.num_forces_dof == 3 and sys.force_groups[0].act_index.tolist() == [[8, 9, 10]]
     cfg = ant_config()
     cfg.actuators[0] = dataclasses.replace(cfg.actuators[0], kind="angle")
-    with pytest.raises(NotImplementedError, match="angle actuators"):
-        builder.build(cfg, device="cpu")
+    sys, art = builder.build(cfg, device="cpu")
+    assert [a.kind for a in sys.actuator_groups] == ["angle", "torque"]
+    # an angle actuator on a spherical joint is not ported: its step raises
+    cfg.joints[0].angle_limits.append((-10.0, 10.0))
+    sys, art = builder.build(cfg, device="cpu")
+    qp = initial.default_qp(art, device="cpu")
+    with pytest.raises(NotImplementedError, match="angle actuators on spherical joints"):
+        kernels.pbd_step_plain(sys, qp, torch.zeros((1, art.action_size)))
     cfg = ant_config()
     cfg.dynamics_mode = "legacy_spring"
     for j in cfg.joints:
