@@ -5,8 +5,10 @@ fork's default of contact-force observations), the humanoids ("humanoid" is
 the fork's humanoid_new, as in the JAX registry; "humanoid_legacy",
 "humanoidstandup"), halfcheetah and pusher (whose scenes have two-way
 capsule-capsule contacts), inverted_pendulum, inverted_double_pendulum and
-swimmer (thruster forces), reacherangle (angle actuators), reacher and the
-trainer test env fast; the other environments are queued in ROADMAP.md.
+swimmer (thruster forces), reacherangle (angle actuators), reacher, grasp
+(angle actuators on spherical joints, one-way capsule-capsule contacts
+against its frozen palm), acrobot, ur5e and the trainer test env fast; the
+other environments are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -15,9 +17,11 @@ import functools
 from typing import Optional
 
 from brax_torch.envs import wrappers
+from brax_torch.envs.acrobot import Acrobot
 from brax_torch.envs.ant import Ant
 from brax_torch.envs.base import Env, State, Wrapper
 from brax_torch.envs.fast import Fast
+from brax_torch.envs.grasp import Grasp
 from brax_torch.envs.halfcheetah import Halfcheetah
 from brax_torch.envs.humanoid import Humanoid, HumanoidLegacy
 from brax_torch.envs.humanoid_standup import HumanoidStandup
@@ -27,10 +31,13 @@ from brax_torch.envs.pusher import Pusher
 from brax_torch.envs.reacher import Reacher
 from brax_torch.envs.reacherangle import ReacherAngle
 from brax_torch.envs.swimmer import Swimmer
+from brax_torch.envs.ur5e import Ur5e
 
 _envs = {
+    "acrobot": Acrobot,
     "ant": functools.partial(Ant, use_contact_forces=True),
     "fast": Fast,
+    "grasp": Grasp,
     "halfcheetah": Halfcheetah,
     "humanoid": Humanoid,
     "humanoid_legacy": HumanoidLegacy,
@@ -41,6 +48,7 @@ _envs = {
     "reacher": Reacher,
     "reacherangle": ReacherAngle,
     "swimmer": Swimmer,
+    "ur5e": Ur5e,
 }
 
 

@@ -3,8 +3,9 @@
 Counterpart of `brax_tpu/sim/actuators.py`.  An `ActuatorGroup` drives a
 subset of one joint group; the action vector is gathered with a static index
 table whose -1 entries (padded dofs) are masked out.  Torque actuators are
-ported, and angle actuators (a PD torque toward the action's angle) on
-revolute joints; angle actuators on spherical joints are not ported yet.  A
+ported, and angle actuators (a PD torque toward the action's angle per
+dof; a padded dof of a spherical joint reads no column and PDs toward
+clip(0, lo, hi), as in the JAX package).  A
 `ForceGroup` pushes bodies straight from three action columns each: a
 thruster's linear, a twister's angular velocity change.
 """
@@ -24,7 +25,7 @@ from brax_torch.sim.types import DP, QP, Tensor, index
 
 @dataclass
 class ActuatorGroup:
-    kind: str  # 'torque' | 'angle' (revolute joints only)
+    kind: str  # 'torque' | 'angle'
     group_index: int  # which joint group
     joint_sel: np.ndarray  # (na,) indices into the joint group
     act_index: np.ndarray  # (na, dof) with -1 padding
@@ -49,11 +50,6 @@ def apply(a: ActuatorGroup, g: joints_mod.JointGroup, qp: QP, act: Tensor, nb: i
     """Applies actuator torques to the joints' parent/child bodies."""
     if a.kind not in ("torque", "angle"):
         raise ValueError(f"unknown actuator kind: {a.kind}")
-    if a.kind == "angle" and g.kind != "revolute":
-        raise NotImplementedError(
-            f"angle actuators on {g.kind} joints are not ported yet (see ROADMAP.md, queue B "
-            "item 1)"
-        )
     sub = _take_group(g, a.joint_sel)
     qp_p = qp.take(sub.parent)
     qp_c = qp.take(sub.child)

@@ -7,8 +7,8 @@ joints, spherical joints (a PBD scene whose joints mix dofs, or has a 2-dof
 joint, is "sphericalized": each joint is padded to 3 dofs with (0, 0)
 limits), torque and angle actuators, thruster and twister forces (their
 action columns follow the actuators'), one-way capsule-plane contacts and
-two-way capsule-capsule contacts.  Any other feature raises
-NotImplementedError naming it.
+capsule-capsule contacts, one-way (body b frozen) or two-way.  Any other
+feature raises NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -402,7 +402,7 @@ def _build_contact_groups(config: cfg.Config, body_index, mass, inv_inertia, f32
             if (type_a, type_b, b_is_frozen) == ("capsule", "plane", True):
                 g = _capsule_plane(sel, com, f32)
                 num_contacts += g.end.shape[0] * g.end.shape[1]
-            elif (type_a, type_b, b_is_frozen) == ("capsule", "capsule", False):
+            elif (type_a, type_b) == ("capsule", "capsule"):
                 g = _capsule_capsule(sel, com, f32)
                 num_contacts += g.end_a.shape[0]
             else:

@@ -5,10 +5,11 @@ of one narrowphase type as static pair tables with a leading (np,) axis and
 yields a manifold of shape (N, np, ncontact, ...).  Each body's update is
 averaged over the contacts of the group that touch it, then summed across
 groups.  Ported: the one-way capsule-plane group (the second body frozen,
-as the ground is) and the two-way capsule-capsule group (both bodies move):
-their PBD position and velocity passes and the velocity-level impulse that
-`System.info` reports at reset.  A one-way capsule-capsule group (a frozen
-second capsule) is not ported yet.
+as the ground is) and the capsule-capsule groups, two-way (both bodies
+move) and one-way (the second capsule's body frozen, as grasp's palm is:
+only the first body is moved, and only its mass and inertia enter the
+updates): their PBD position and velocity passes and the velocity-level
+impulse that `System.info` reports at reset.
 """
 
 from __future__ import annotations
@@ -107,11 +108,8 @@ def _b1(x: Tensor) -> Tensor:
 
 
 def _check_ported(group):
-    """Every group but the one-way capsule-plane and the two-way
-    capsule-capsule ones is still queued."""
-    if isinstance(group, CapsuleCapsule) and group.com.one_way:
-        raise NotImplementedError(
-            "one-way CapsuleCapsule contacts are not ported yet (see ROADMAP.md, queue B item 1)")
+    """Every group but the one-way capsule-plane and the capsule-capsule
+    ones is still queued."""
     if isinstance(group, CapsulePlane) and not group.com.one_way:
         raise NotImplementedError(
             "two-way CapsulePlane contacts are not ported yet (see ROADMAP.md, queue B item 1)")

@@ -24,9 +24,13 @@ place of the revolute ones.  A scene with two-way capsule-capsule contacts
 narrowphase and the two-way contact passes beside the one-way capsule-plane
 ones.  A scene with thrusters or twisters (inverted_pendulum,
 inverted_double_pendulum, swimmer) defines PBD_FORCES, which compiles the
-forces' velocity changes, and one with angle actuators (reacherangle)
-PBD_ANGLE, which compiles their PD torque; a scene without a group compiles
-none of its code.
+forces' velocity changes, and one with angle actuators (reacherangle,
+grasp) PBD_ANGLE, which compiles their PD torque, on revolute joints or,
+beside PBD_SPHERICAL, per dof of a spherical joint.  A scene with one-way
+capsule-capsule contacts (grasp's ball against its frozen palm) defines
+PBD_CAPCAP_ONEWAY beside PBD_CAPCAP: such a lane takes the capsule-capsule
+contact point and the one-way update of body a alone.  A scene without a
+group compiles none of its code.
 """
 
 from __future__ import annotations
@@ -54,7 +58,7 @@ SOURCE = cuda_build.CSRC / "pbd_step.cu"
 BUILD_DIR = cuda_build.BUILD_DIR
 # guards on the generated size: the scenes the kernel is built and tested for
 # (a contact needs a lane of its env's 32 at most)
-MAX_BODIES, MAX_CONTACTS, MAX_ACT = 16, 32, 32
+MAX_BODIES, MAX_CONTACTS, MAX_ACT = 16, 32, 64
 WARP = 32
 # pack_tables' record sizes, in floats: globals, body, joint, actuator, a
 # capsule-plane contact, a capsule-capsule contact and a force
@@ -91,8 +95,6 @@ def unsupported_features(sys: System, n_act: int = 0) -> List[str]:
     for a in sys.actuator_groups:
         if a.kind not in ("torque", "angle"):
             missing.append(f"{a.kind} actuators")
-        elif a.kind == "angle" and sys.joint_groups[a.group_index].kind != "revolute":
-            missing.append(f"angle actuators on {sys.joint_groups[a.group_index].kind} joints")
     for f in sys.force_groups:
         if f.kind not in FORCE_KINDS:
             missing.append(f"{f.kind} forces")
@@ -100,10 +102,7 @@ def unsupported_features(sys: System, n_act: int = 0) -> List[str]:
         if isinstance(c, colliders_mod.CapsulePlane):
             if not c.com.one_way:
                 missing.append("two-way CapsulePlane contacts")
-        elif isinstance(c, colliders_mod.CapsuleCapsule):
-            if c.com.one_way:
-                missing.append("one-way CapsuleCapsule contacts")
-        else:
+        elif not isinstance(c, colliders_mod.CapsuleCapsule):
             missing.append(f"{type(c).__name__} contacts")
     if sys.num_bodies > MAX_BODIES:
         missing.append(f"{sys.num_bodies} bodies (the kernel holds {MAX_BODIES})")
@@ -234,8 +233,9 @@ class Plan:
     contact group, from the contacts where it is body a and then from the
     two-way contacts where it is body b (contact order each), as the JAX
     package's scatter adds a group's body-a updates before its body-b ones,
-    and the forces on it (force order).  A scene without contacts has one
-    empty group.
+    and the forces on it (force order).  A one-way capsule-capsule contact
+    (body b frozen) updates body a alone, so no body gathers it as body b.
+    A scene without contacts has one empty group.
     """
 
     nb: int
@@ -252,7 +252,7 @@ class Plan:
     act_col: Tuple[Tuple[int, ...], ...]  # an action column per dof, -1 for none
     contact_a: Tuple[int, ...]
     contact_b: Tuple[int, ...]
-    contact_capcap: Tuple[bool, ...]  # a capsule-capsule (two-way) contact
+    contact_capcap: Tuple[bool, ...]  # a two-way capsule-capsule contact
     body_child_joints: Tuple[Tuple[int, ...], ...]
     body_parent_joints: Tuple[Tuple[int, ...], ...]
     body_actuators: Tuple[Tuple[Tuple[int, int], ...], ...]
@@ -263,10 +263,21 @@ class Plan:
     force_twister: Tuple[bool, ...]
     force_col: Tuple[Tuple[int, int, int], ...]  # unclipped
     body_forces: Tuple[Tuple[int, ...], ...]
+    contact_oneway: Tuple[bool, ...]  # a one-way capsule-capsule contact
 
     @property
     def capcap(self) -> bool:
-        return any(self.contact_capcap)
+        """Any capsule-capsule contact, one-way or two-way."""
+        return any(self.contact_capcap) or self.oneway
+
+    @property
+    def oneway(self) -> bool:
+        return any(self.contact_oneway)
+
+    @property
+    def capcap_record(self) -> Tuple[bool, ...]:
+        """Per contact: its record is a capsule-capsule one (CC_SIZE floats)."""
+        return tuple(a or b for a, b in zip(self.contact_capcap, self.contact_oneway))
 
     @property
     def angle(self) -> bool:
@@ -339,7 +350,10 @@ def plan(sys: System) -> Plan:
             f"{lanes} (nb {nb}, nj {nj}, na {na}, nc {nc}, nf {nf})")
     parent, child = joints[:, 0].tolist(), joints[:, 1].tolist()
     groups = max(len(sys.contact_groups), 1)
-    capcap = tuple(_is_capcap(c) for c in sys.contact_groups for _ in range(_n_contacts(c)))
+    per_contact = lambda one_way: tuple(_is_capcap(c) and bool(c.com.one_way) == one_way
+                                        for c in sys.contact_groups
+                                        for _ in range(_n_contacts(c)))
+    capcap, oneway = per_contact(False), per_contact(True)
     listed = lambda side, two_way_only: tuple(
         tuple(tuple(c for c in range(nc) if contacts[c, 0] == g and contacts[c, side] == b
                     and (capcap[c] or not two_way_only))
@@ -368,6 +382,7 @@ def plan(sys: System) -> Plan:
         force_twister=tuple(bool(k) for k in forces[:, 1].tolist()),
         force_col=tuple(tuple(row) for row in forces[:, 2:].tolist()),
         body_forces=tuple(tuple(f for f in range(nf) if forces[f, 0] == b) for b in range(nb)),
+        contact_oneway=oneway,
     )
     sys.__dict__["_pbd_plan"] = p
     return p
@@ -430,7 +445,7 @@ def scene_header(sys: System) -> str:
     contacts = np.zeros((p.nc, C_SIZE), np.float32)
     capcaps = np.zeros((p.nc, CC_SIZE), np.float32)
     start = at[-1]
-    for c, is_cc in enumerate(p.contact_capcap):
+    for c, is_cc in enumerate(p.capcap_record):
         size = CC_SIZE if is_cc else C_SIZE
         (capcaps if is_cc else contacts)[c] = ftab[start:start + size]
         start += size
@@ -450,6 +465,8 @@ def scene_header(sys: System) -> str:
         parts.append("#define PBD_SPHERICAL 1\n")
     if p.capcap:
         parts.append(f"#define PBD_CAPCAP 1\n#define PBD_KGB {p.width_b}\n")
+    if p.oneway:
+        parts.append("#define PBD_CAPCAP_ONEWAY 1\n")
     if p.forces:
         parts.append(f"#define PBD_FORCES 1\n#define PBD_NF {p.nf}\n#define PBD_KF {p.width_f}\n")
     if p.angle:
@@ -486,6 +503,8 @@ def scene_header(sys: System) -> str:
             _lane_ints("CONTACT_CAPCAP", [int(x) for x in p.contact_capcap], L, 0),
             f"static __device__ const int BODY_CON_B[{p.ng}][{kgb}][{L}] = {{{con_b}}};\n",
         ]
+    if p.oneway:
+        parts.append(_lane_ints("CONTACT_ONEWAY", [int(x) for x in p.contact_oneway], L, 0))
     if p.forces:
         parts += [
             _lane_floats("FORCE_F", forces, L),

@@ -1,7 +1,10 @@
 """The rules that hold the v1 PBD kernel (`kernels.pbd_step`) to its plain
 twin (`kernels.pbd_step_plain`) on the same inputs, the states of v1
-halfcheetah and pusher whose two-way capsule-capsule pairs overlap, and the
-physics actions of the thruster and angle-actuator scenes.
+halfcheetah and pusher whose two-way capsule-capsule pairs overlap, the
+physics actions of the thruster and angle-actuator scenes, grasp's states
+(its claw closed on the ball), and Systems made for what no default scene
+has (a one-way pair whose body b moves, padded spherical angle dofs, a
+twister).
 
 `chip_smoke.py` and the tests (`tests/test_torch_cuda.py` on the card,
 `tests/test_torch_pbd_launch.py` and `tests/test_torch_halfcheetah.py` on
@@ -75,6 +78,20 @@ RULES = {
     "pusher": {"reset": ("max_errors", "max_errors"),
                "after 10 twin steps": ("max_errors", "chaos_rule"),
                "capsule-capsule contact": ("max_errors", "chaos_rule")},
+    # pusher's pairs made one-way (oneway_pusher below), from the readings of
+    # tests/pbd_faults.py at 4096 envs on an H100: with the pairs
+    # overlapping the twin itself leaves TOLERANCE under CHAOS_NOISE in 79
+    # envs over one pass and 104 over the whole step (the kernel: 48 and 34
+    # outliers, 3 and 0 strays); after 10 steps its whole step has 5
+    # rounding-decided outliers (the twin's own count 8, 1 stray)
+    "pusher_oneway": {"reset": ("max_errors", "max_errors"),
+                      "after 10 twin steps": ("max_errors", "chaos_rule"),
+                      "capsule-capsule contact": ("chaos_rule", "chaos_rule")},
+    # grasp (GRASP_STATES below): the rounding rule over one pass and the
+    # whole step; its kernel kept every env within TOLERANCE of the twin in
+    # the CPU emulation from both states
+    "grasp": {"reset": ("max_errors", "max_errors"),
+              "claw closed on the ball": ("max_errors", "max_errors")},
 }
 
 
@@ -289,9 +306,10 @@ def hold(rule, sys_, qp, act, gen, label):
 
 
 def hold_capcap(name, state, sys_, qp, act, gen, label):
-    """A capsule-capsule scene's kernel against the twin from one state,
-    over one pass and over the whole step, each by the rule RULES names.
-    Raises where a rule fails; returns the record."""
+    """A capsule-capsule scene's kernel (halfcheetah, pusher, grasp)
+    against the twin from one state, over one pass and over the whole step,
+    each by the rule RULES names.  Raises where a rule fails; returns the
+    record."""
     one, whole = RULES[name][state]
     own = twin_own_outside(sys_, qp, act, gen)
     print(f"parity {label}: the twin leaves the tolerance in {own} envs of {qp.pos.shape[0]} "
@@ -375,14 +393,97 @@ def physics_actions(name, n, gen, device):
     return act
 
 
-def force_scene_states(name, env, n, seed, device):
+def force_scene_states(name, env, n, seed, device, sys_=None):
     """{state: (qp, act)} of a scene of PHYSICS_ACT at n envs: a reset of
-    `env` and 10 twin steps after it on `physics_actions`, each with one
-    more action."""
+    `env` and 10 twin steps after it (of `sys_`, default env.sys) on
+    `physics_actions`, each with one more action."""
     gen = torch.Generator(device=device).manual_seed(seed)
     act = lambda: physics_actions(name, n, gen, device)
     reset = env.reset(gen).qp
     settled = reset
     for _ in range(10):
-        settled, _ = kernels.pbd_step_plain(env.sys, settled, act())
+        settled, _ = kernels.pbd_step_plain(sys_ or env.sys, settled, act())
     return {STATES[0]: (reset, act()), STATES[1]: (settled, act())}
+
+
+# grasp: its states, reset and the claw closed on the ball (all four
+# fingertips on it after GRASP_CLOSE_STEPS twin steps of the closing action
+# in 100% of 64 CPU draws; the proximal joints swing in over ~15 steps)
+GRASP_STATES = ("reset", "claw closed on the ball")
+GRASP_CLOSE_STEPS = 17
+GRASP_NOISE = 0.1
+
+
+def claw_closing_action(env, n, gen, device):
+    """(n, 39) env actions of grasp (`env` unwrapped) that close the claw on
+    the ball: every finger's curl (dof 0 of the middle and distal joints) and
+    swing (dof 0 of the proximal joint) at the limit that turns it inward
+    (the first finger's lower limit, the others' upper one), the other dofs
+    at mid-range and the palm's target at (0, 0, 3.5), just above it; plus
+    uniform noise of +-GRASP_NOISE, clipped to [-1, 1]."""
+    a = torch.zeros(env.action_size, device=device)
+    for j, joint in enumerate(env.art.config.joints):
+        a[3 * j] = -1.0 if j < 3 else 1.0
+    a[-3:] = torch.tensor([0.0, 0.0, -1.0], device=device)
+    noise = (torch.rand((n, env.action_size), generator=gen, device=device) * 2 - 1)
+    return (a + GRASP_NOISE * noise).clamp(-1.0, 1.0)
+
+
+def grasp_states(env, n, seed, device):
+    """{state: (qp, act)} of grasp (`env` unwrapped, n envs) as its physics
+    step is given them (`env.physics_input`: the palm moved, the action
+    mapped onto the joints' limits in degrees and the palm's box): from a
+    reset on uniform actions in [-1, 1], and with the claw closed on the
+    ball (GRASP_CLOSE_STEPS twin steps of `claw_closing_action`), on one
+    more closing action."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qp = env.reset(gen).qp
+    rand = torch.rand((n, env.action_size), generator=gen, device=device) * 2 - 1
+    states = {GRASP_STATES[0]: env.physics_input(qp, rand)}
+    for _ in range(GRASP_CLOSE_STEPS):
+        qp, _ = kernels.pbd_step_plain(env.sys, *env.physics_input(
+            qp, claw_closing_action(env, n, gen, device)))
+    states[GRASP_STATES[1]] = env.physics_input(qp, claw_closing_action(env, n, gen, device))
+    return states
+
+
+def fingertips_on_ball(env, qp):
+    """The share of grasp envs with all four fingertips on the ball."""
+    g = next(c for c in env.sys.contact_groups
+             if isinstance(c, colliders.CapsuleCapsule) and not c.com.one_way)
+    pen = g.contact(qp.take(g.com.body_a), qp.take(g.com.body_b)).penetration.flatten(1)
+    return float((pen > 0).all(dim=1).float().mean())
+
+
+# Systems made to reach what no default scene has
+def oneway_pusher(sys_):
+    """pusher's System with its capsule-capsule pairs made one-way: a
+    one-way capsule-capsule group whose body b (the object) moves, which
+    grasp's (body b the frozen palm) cannot show: only body a may move."""
+    groups = tuple(dataclasses.replace(c, com=dataclasses.replace(c.com, one_way=True))
+                   if isinstance(c, colliders.CapsuleCapsule) else c
+                   for c in sys_.contact_groups)
+    return dataclasses.replace(sys_, contact_groups=groups)
+
+
+def padded_grasp(sys_):
+    """grasp's System with dof 0's action column taken from every actuator
+    but the first (-1, a padded dof): each such dof PDs toward clip(0, lo,
+    hi), not toward its action; with limits of (0, 90), (-90, 0) or (-45,
+    45) degrees, reading any column there would move it."""
+    (group,) = sys_.actuator_groups
+    act_index = group.act_index.copy()
+    act_index[1:, 0] = -1
+    return dataclasses.replace(sys_, actuator_groups=(
+        dataclasses.replace(group, act_index=act_index),))
+
+
+def twister_swimmer(device):
+    """swimmer's System with its torso's thruster made a twister (three
+    action columns of angular velocity change): no default scene has one."""
+    from brax_torch.envs.assets.swimmer import swimmer_config
+    from brax_torch.sim import builder
+
+    cfg = swimmer_config()
+    cfg.forces[0].kind = "twister"
+    return builder.build(cfg, device=device)[0]

@@ -6,7 +6,9 @@
 2. builds brax_torch/csrc/pbd_step.cu with nvcc (sm_90a) for the v1 ant's,
    humanoid's, humanoidstandup's, halfcheetah's, pusher's,
    inverted_pendulum's, inverted_double_pendulum's, swimmer's,
-   reacherangle's and reacher's Systems (each scene's header in front,
+   reacherangle's, reacher's, grasp's, acrobot's and ur5e's Systems (and
+   grasp's one-pass System and swimmer's with a twister; each scene's
+   header in front,
    brax_torch.sim.kernels.kernel_source) and prints ptxas's register and
    spill reports and the launches (lanes per env, envs per block, resident
    blocks per SM, waves);
@@ -79,6 +81,21 @@
    with exact launch counts (per training step 800 PBD, 968 fused forward,
    512 backward) and its env-steps/s (scripts/profile_ppo_step.py profiles
    its training step apart: the trace's processing takes minutes);
+9d. v1 grasp (the PBD kernel's one-way capsule-capsule lanes,
+   PBD_CAPCAP_ONEWAY, and angle actuators on spherical joints,
+   PBD_SPHERICAL_ANGLE) held against the twin at 4096 envs from a reset
+   and with its claw closed on the ball (pbd_parity.grasp_states), over one
+   pass and over the whole step, each by the rule pbd_parity.RULES names
+   (the rule of step 3); swimmer with its torso's thruster made a twister,
+   and v1 acrobot and ur5e, after 10 twin steps by the rule of step 3; the
+   main paths envs.create(name, batch_size=4096) of grasp (200 steps,
+   profiled), acrobot and ur5e (50 each), one launch per step; the kernel
+   timed per scene as in step 5 beside its bound; the fused MLP kernels
+   held and timed at the grasp recipe's shapes (132-wide observation, a
+   78-wide policy head, 5120-row minibatches); PPO at
+   DEFAULT_PPO_PARAMS["grasp"] for 2 training steps and one evaluation of
+   128 envs, with exact launch counts (per training step 80 PBD, 272 fused
+   forward, 128 backward) and its env-steps/s;
 10. holds the generalized-step kernel (brax_torch/csrc/gen_step.cu, built
    for the v2 ant) against its plain version at 4096 envs from a state 10
    plain env steps after reset, at one frame and at ant's five, with the
@@ -138,8 +155,9 @@ from brax_torch.sim import kernels
 from brax_torch.tools import probe_overhead as probe
 from brax_torch.tools.pbd_parity import (MAX_OUTLIERS, PERTURBED_COPIES, ROUNDING_NOISE,
                                          RULES, STATES, TOLERANCE, capcap_share, capcap_state,
-                                         contact_share, force_scene_states, hold_capcap,
-                                         max_errors, one_pass)
+                                         contact_share, fingertips_on_ball, force_scene_states,
+                                         grasp_states, hold_capcap, max_errors, one_pass,
+                                         twister_swimmer)
 from brax_torch.training import fused_mlp
 from brax_torch.training.agents.ppo import networks as ppo_networks
 from brax_torch.training.agents.ppo import train as ppo
@@ -161,7 +179,9 @@ CHAINS = {"value": [87] + [256] * 5 + [1], "policy": [87] + [32] * 4 + [16],
           "value_humanoid": [240] + [256] * 5 + [1],
           "policy_humanoid": [240] + [32] * 4 + [34],
           "value_halfcheetah": [18] + [256] * 5 + [1],
-          "policy_halfcheetah": [18] + [32] * 4 + [12]}
+          "policy_halfcheetah": [18] + [32] * 4 + [12],
+          "value_grasp": [132] + [256] * 5 + [1],
+          "policy_grasp": [132] + [32] * 4 + [78]}
 # (chain, rows) as the PPO paths launch them: minibatch [T=5, 1024] losses
 # (5120 rows), the rollout's policy at 2048 envs, the bootstrap value at 1024
 CHAIN_SHAPES = [(c + v, r) for v in ("", "_v2")
@@ -181,6 +201,13 @@ HALFCHEETAH_PARITY_SHAPES = [(c + "_halfcheetah", r) for c in ("value", "policy"
                              for r in (10240, 2048, 1024, 128)] + [("value_halfcheetah", 512)]
 HALFCHEETAH_TIMING_SHAPES = [("value_halfcheetah", 10240), ("policy_halfcheetah", 10240),
                              ("policy_halfcheetah", 2048), ("value_halfcheetah", 512)]
+# the grasp recipe's (batch 256 x unroll 20): minibatch losses at 5120 rows,
+# the rollout's policy at 2048 envs, the eval's at 128, the bootstrap value at
+# 256; timed at a training step's
+GRASP_PARITY_SHAPES = [(c + "_grasp", r) for c in ("value", "policy")
+                       for r in (5120, 2048, 128)] + [("value_grasp", 256)]
+GRASP_TIMING_SHAPES = [("value_grasp", 5120), ("policy_grasp", 5120), ("policy_grasp", 2048),
+                       ("value_grasp", 256)]
 # f32 mode: tests/test_fused_mlp.py's tolerances (|err| <= atol + rtol |plain|)
 F32_TOL = {"fwd": (2e-5, 2e-5), "bwd": (2e-4, 2e-5)}
 # bf16 mode: max |kernel - plain| <= BF16_REL * max |plain|, per output.  The
@@ -237,6 +264,13 @@ FORCE_ENV_STEPS = {"inverted_pendulum": 50, "inverted_double_pendulum": 50, "swi
 FORCE_OBS = {"inverted_pendulum": 4, "inverted_double_pendulum": 8, "swimmer": 8,
              "reacherangle": 11, "reacher": 11}
 PPO_REACHER_STEPS = 2
+# v1 grasp (one-way capsule-capsule contacts, PBD_CAPCAP_ONEWAY; angle
+# actuators on spherical joints, PBD_SPHERICAL_ANGLE), and acrobot and ur5e
+# (revolute joints, torque actuators, no contacts): each env's main-path
+# steps and observation width
+GRASP_ENV_STEPS = {"grasp": MAIN_STEPS, "acrobot": 50, "ur5e": 50}
+GRASP_OBS = {"grasp": 132, "acrobot": 4, "ur5e": 66}
+PPO_GRASP_STEPS = 2
 # the PBD kernel's batch sizes: PPO's eval, PPO's training batch, env.step's
 PBD_TIMING_ENVS = (PPO_EVAL_ENVS, 2048, N_ENVS)
 PROFILE_EPISODE = 10
@@ -1262,6 +1296,148 @@ def force_paths(tag, phase, f_envs):
             "per_step": per_step_r, "seconds": r_ppo_s}
 
 
+def grasp_paths(tag, phase, g_envs, checks, fused_plans, times, bounds):
+    """The v1 grasp, acrobot and ur5e phases (the PBD kernel's one-way
+    capsule-capsule lanes, PBD_CAPCAP_ONEWAY, and angle actuators on
+    spherical joints, PBD_SPHERICAL_ANGLE; acrobot and ur5e on the revolute
+    and torque code): grasp's kernel against the twin at N_ENVS envs from a
+    reset and with its claw closed on the ball (pbd_parity.grasp_states),
+    over one pass and over the whole step, each by the rule
+    pbd_parity.RULES names; the twister (swimmer's torso thruster made
+    one, pbd_parity.twister_swimmer) after 10 twin steps by the rounding
+    rule; the main paths (env.step of grasp, profiled, acrobot and ur5e,
+    exact launch counts); the kernel's timings and bound per scene; the
+    fused MLP kernels against their plain versions and timed at the grasp
+    recipe's shapes (added to `checks`, `fused_plans`, `times` and
+    `bounds`); and PPO at the grasp recipe for PPO_GRASP_STEPS training
+    steps and one evaluation, with exact launch counts."""
+    device = DEVICE
+    phase("v1 grasp: pbd_step parity")
+    g_env = g_envs["grasp"]
+    g_sys = g_env.sys
+    gen = torch.Generator(device=device).manual_seed(7)
+    checks_g = {}
+    for state, (qp, act) in grasp_states(g_env.unwrapped, N_ENVS, 0, device).items():
+        share, tips = contact_share(g_sys, qp, act), fingertips_on_ball(g_env.unwrapped, qp)
+        print(f"parity state: grasp, {N_ENVS} envs, {state}, {share:.3f} in contact, {tips:.3f} "
+              f"with all four fingertips on the ball; one pass by {RULES['grasp'][state][0]}, "
+              f"the whole step by {RULES['grasp'][state][1]}")
+        checks_g[state] = {**hold_capcap("grasp", state, g_sys, qp, act, gen, f"grasp {state} "),
+                           "contact_share": share, "fingertips_on_ball": tips}
+    g_scene = {"grasp": {"sys": g_sys, "qp": qp, "act": act, "checks": checks_g}}
+    t_sys = twister_swimmer(device)
+    t_env = envs.create("swimmer", episode_length=1000, batch_size=N_ENVS)
+    t_qp, t_act = force_scene_states("swimmer", t_env, N_ENVS, 0, device, t_sys)[STATES[1]]
+    print(f"parity state: swimmer_twister (swimmer's torso thruster made a twister), {N_ENVS} "
+          f"envs, {STATES[1]}, action {tuple(t_act.shape)}")
+    errs_t, inside_t, outliers_t = max_errors(t_sys, t_qp, t_act, gen, "swimmer_twister ")
+    twister = {"max_abs_err_by_field": errs_t, "max_abs_err_within_tolerance_by_field": inside_t,
+               "outlier_envs_decided_by_rounding": outliers_t}
+    for name in ("acrobot", "ur5e"):
+        env_ = g_envs[name]
+        gen_ = torch.Generator(device=device).manual_seed(0)
+        qp_ = env_.reset(gen_).qp
+        act_ = lambda: torch.rand((N_ENVS, env_.action_size), generator=gen_, device=device) * 2 - 1
+        for _ in range(10):
+            qp_, _ = kernels.pbd_step_plain(env_.sys, qp_, act_())
+        a_ = act_()
+        print(f"parity state: {name}, {N_ENVS} envs, {STATES[1]}, action {tuple(a_.shape)}")
+        e_, i_, o_ = max_errors(env_.sys, qp_, a_, gen, f"{name} {STATES[1]} ")
+        g_scene[name] = {"sys": env_.sys, "qp": qp_, "act": a_, "checks": {STATES[1]: {
+            "max_abs_err_by_field": e_, "max_abs_err_within_tolerance_by_field": i_,
+            "outlier_envs_decided_by_rounding": o_}}}
+
+    phase("v1 grasp, acrobot, ur5e: main paths")
+    g_main = {}
+    for name, steps in GRASP_ENV_STEPS.items():
+        env_, state_, act_gen, g_main[name] = v1_main_path(
+            tag, name, steps, GRASP_OBS[name], warm=20 if steps == MAIN_STEPS else 10)
+        if name == "grasp":
+            state_, g_main[name]["profile"] = profile_env_step(tag, name, env_, state_, act_gen)
+
+    phase("v1 grasp, acrobot, ur5e: pbd_step timings")
+    for name, r in g_scene.items():
+        sys_, qp, act = r["sys"], r["qp"], r["act"]
+        b = pbd_bound(sys_, qp, act)
+        r["bound"] = dict(zip(("bound_ms", "bound_by", "ops", "bytes"), b[:4]))
+        r["plain_ms"] = cuda_ms(lambda: kernels.pbd_step_plain(sys_, qp, act), reps=5, warmup=1)
+        r["ms_by_envs"] = pbd_timings(tag, sys_, qp, act, b[0] / N_ENVS, name)
+        print(f"bound {tag}: pbd_step {name} at {N_ENVS} envs: {b[3]} bytes -> {b[4]:.5f} ms at "
+              f"3.35 TB/s; {b[2]} fp32 ops (the twin's, counted) -> {b[5]:.5f} ms at 67 "
+              f"TFLOP/s; plain twin {r['plain_ms']:.3f} ms/step")
+
+    phase("v1 grasp: fused_mlp parity and timings")
+    for name, rows in GRASP_PARITY_SHAPES:
+        for mode in ("bf16", "f32"):
+            checks[name, rows, mode] = check_chain(name, rows, mode == "bf16")
+            for kind, r in checks[name, rows, mode].items():
+                print(f"parity fused_mlp_{kind} {name}@{rows} {mode}: max|kernel - plain| = "
+                      f"{r['max_abs_err']:.3e}, mean|err|/mean|plain| up to "
+                      f"{r['max_mean_rel_err']:.3e}, {r['fraction_of_tolerance']:.3f} of the "
+                      f"tolerance")
+        for kind in ("fwd", "bwd"):
+            fused_plans[kind, name, rows] = {k: v for k, v in fused_mlp.card_plan(
+                tuple(CHAINS[name]), rows, device, kind == "bwd").items() if k != "scratch"}
+    for name, rows in GRASP_TIMING_SHAPES:
+        times[name, rows, "bf16"] = t = time_chain(name, rows, True)
+        for kind in ("fwd", "bwd"):
+            bounds[kind, name, rows, "bf16"] = b = chain_bound(CHAINS[name], rows, True,
+                                                               kind == "bwd")
+            print(f"timing {tag}: fused_mlp_{kind} {name}@{rows} bf16: kernel {t[kind]:.4f} ms "
+                  f"graph-replayed ({t[kind + '_host']:.4f} host-issued), plain "
+                  f"{t['plain_' + kind]:.4f} ms, F.linear chain (cuBLAS) "
+                  f"{t['cublas_' + kind]:.4f} ms graph-replayed; bound {b[0]:.5f} ms by {b[1]}")
+
+    phase("v1 grasp: PPO")
+    p_g = recipe("grasp")
+    rollout_g, sgd_g, _ = launch_plan(p_g)
+    per_step_g = {"pbd_step": rollout_g * p_g["action_repeat"],
+                  "fused_mlp_fwd": rollout_g + 3 * sgd_g, "fused_mlp_bwd": 2 * sgd_g}
+    if per_step_g != {"pbd_step": 80, "fused_mlp_fwd": 272, "fused_mlp_bwd": 128}:
+        raise AssertionError(f"grasp recipe launches per training step {per_step_g}")
+    if env_steps_per_training_step(p_g) != 163_840:
+        raise AssertionError(f"grasp recipe env steps per training step "
+                             f"{env_steps_per_training_step(p_g)}")
+    want_g = dict(zip(("fused_mlp_fwd", "fused_mlp_bwd", "pbd_step"),
+                      expected_launches(p_g, PPO_GRASP_STEPS)))
+    recorder = InitRecorder()
+    kernels.pbd_step_launch.launches = 0
+    fused_mlp.chain_fwd.launches = fused_mlp.chain_bwd.launches = 0
+    t0 = time.perf_counter()
+    _, (_, policy_params), g_ppo = run_ppo(True, PPO_GRASP_STEPS, environment="grasp",
+                                           preset="grasp", network_factory=recorder.factory)
+    torch.cuda.synchronize()
+    g_ppo_s = time.perf_counter() - t0
+    g_launches = {"fused_mlp_fwd": fused_mlp.chain_fwd.launches,
+                  "fused_mlp_bwd": fused_mlp.chain_bwd.launches,
+                  "pbd_step": kernels.pbd_step_launch.launches}
+    moved = check_ppo_run("PPO grasp", g_ppo, recorder, policy_params, g_launches, want_g)
+    widths = (recorder.initial["policy"]["hidden_0.kernel"].shape[0],
+              recorder.initial["policy"]["hidden_4.kernel"].shape[1])
+    if widths != (GRASP_OBS["grasp"], 78):
+        raise AssertionError(f"the grasp policy maps {widths[0]} inputs to {widths[1]}")
+    g_fused_ms = {
+        "fwd": rollout_g * times["policy_grasp", 2048, "bf16"]["fwd"] + sgd_g * sum(
+            times[c + "_grasp", r, "bf16"]["fwd"]
+            for c, r in (("policy", 5120), ("value", 5120), ("value", 256))),
+        "bwd": sgd_g * sum(times[c + "_grasp", 5120, "bf16"]["bwd"] for c in ("policy", "value")),
+    }
+    print(f"main path PPO grasp: {PPO_GRASP_STEPS} training steps at the grasp recipe (num_envs "
+          f"{p_g['num_envs']}, batch {p_g['batch_size']} x {p_g['num_minibatches']} minibatches, "
+          f"unroll {p_g['unroll_length']}, {p_g['num_updates_per_batch']} updates) + one eval "
+          f"of {PPO_EVAL_ENVS} envs in {g_ppo_s:.1f} s; launches {g_launches} (as expected; per "
+          f"training step {per_step_g}); total_loss {g_ppo['training/total_loss']:.5g}, "
+          f"eval/episode_reward {g_ppo['eval/episode_reward']:.5g}; every parameter moved "
+          f"(smallest max change {moved:.3e})")
+    print(f"timing {tag}: PPO grasp training env-steps/s over step 2 (host clock, fused_mlp on): "
+          f"{g_ppo['training/sps_after_first']:.1f}; fused device ms per training step "
+          f"(graph-replayed times x launches): fwd {g_fused_ms['fwd']:.3f}, bwd "
+          f"{g_fused_ms['bwd']:.3f}")
+    return {"scene": g_scene, "main": g_main, "launches": g_launches, "ppo": g_ppo,
+            "per_step": per_step_g, "fused_ms": g_fused_ms, "seconds": g_ppo_s,
+            "twister": twister}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -1285,16 +1461,21 @@ def main():
               for name in CAPCAP_SCENES}
     f_envs = {name: envs.create(name, episode_length=1000, batch_size=N_ENVS)
               for name in FORCE_SCENES}
+    g_envs = {name: envs.create(name, episode_length=1000, batch_size=N_ENVS)
+              for name in GRASP_ENV_STEPS}
     built = cuda_build.build(kernels.kernel_source(sys_), fused_mlp.SOURCE, probe.SOURCE,
                              *(kernels.kernel_source(e.sys) for e in h_envs.values()),
                              *(kernels.kernel_source(e.sys) for e in c_envs.values()),
                              *(kernels.kernel_source(one_pass(e.sys)) for e in c_envs.values()),
                              *(kernels.kernel_source(e.sys) for e in f_envs.values()),
+                             *(kernels.kernel_source(e.sys) for e in g_envs.values()),
+                             kernels.kernel_source(one_pass(g_envs["grasp"].sys)),
+                             kernels.kernel_source(twister_swimmer(device)),
                              *(gen_kernels.kernel_source(s) for s in scenes))
     print(f"build: {', '.join(p.name for p in built.values())} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a, in parallel)")
     print(kernels.ptxas_report(sys_).strip())
-    for e in (*h_envs.values(), *c_envs.values(), *f_envs.values()):
+    for e in (*h_envs.values(), *c_envs.values(), *f_envs.values(), *g_envs.values()):
         print(kernels.ptxas_report(e.sys).strip())
     print(fused_mlp.ptxas_report().strip())
     print(probe.ptxas_report().strip())
@@ -1307,6 +1488,8 @@ def main():
                 for name, e in c_envs.items()}
     f_launch = {name: pbd_launch_report(e.sys, PBD_TIMING_ENVS, name)
                 for name, e in f_envs.items()}
+    g_launch = {name: pbd_launch_report(e.sys, PBD_TIMING_ENVS, name)
+                for name, e in g_envs.items()}
     hgmma = cuda_build.sass_count(built[probe.SOURCE], "HGMMA")
     print(f"probe dot_chain build: {hgmma} HGMMA (wgmma) instructions in "
           f"{built[probe.SOURCE].name} (cuobjdump --dump-sass)")
@@ -1448,6 +1631,8 @@ def main():
     c_scene, c_main, c_launches = c["scene"], c["main"], c["launches"]
     f = force_paths(tag, phase, f_envs)
     f_scene, f_main, f_launches = f["scene"], f["main"], f["launches"]
+    g = grasp_paths(tag, phase, g_envs, checks, fused_plans, times, bounds)
+    g_scene, g_main, g_launches = g["scene"], g["main"], g["launches"]
 
     def fused_entry(kind, replaces, function):
         main = ("value", 5120, "bf16")
@@ -1463,6 +1648,7 @@ def main():
                                  "PPO v2 ant": v2_launches[f"fused_mlp_{kind}"],
                                  "PPO humanoid": h_launches[f"fused_mlp_{kind}"],
                                  "PPO v1 halfcheetah": c_launches[f"fused_mlp_{kind}"],
+                                 "PPO grasp": g_launches[f"fused_mlp_{kind}"],
                                  "probe": probe_launches.get(f"fused_mlp_{kind}", 0)},
             "launches_per_training_step": per_step_launches[kind],
             "max_abs_err": max(c[kind]["max_abs_err"] for k, c in checks.items()
@@ -1472,7 +1658,7 @@ def main():
             "tolerance": {"bf16_rel_to_max": BF16_REL, "f32_rtol_atol": F32_TOL[kind]},
             "shape": "value chain 87-256x5-1 at 5120 rows, bf16; by_shape has every "
                      "chain of the PPO paths (87-wide v1 ant, 27-wide v2 ant, 240-wide "
-                     "humanoid, 18-wide v1 halfcheetah)",
+                     "humanoid, 18-wide v1 halfcheetah, 132-wide grasp)",
             "ms": times[main][kind],
             "ms_host_issued": times[main][kind + "_host"],
             "ms_clock": f"replayed from a CUDA graph of {GRAPH_CALLS} calls; ms_host_issued: "
@@ -1487,6 +1673,7 @@ def main():
             "ms_per_training_step_v2": per_step_v2[kind],
             "ms_per_training_step_humanoid": h_fused_ms[kind],
             "ms_per_training_step_halfcheetah": c["fused_ms"][kind],
+            "ms_per_training_step_grasp": g["fused_ms"][kind],
             "launch": fused_plans[kind, "value", 5120],
             "by_shape": [
                 {"chain": c, "rows": r, "mode": m, "ms": times[c, r, m][kind],
@@ -1732,6 +1919,11 @@ def main():
                     "eval_episode_reward": f["ppo"]["eval/episode_reward"],
                     "total_loss": f["ppo"]["training/total_loss"], "launches": f_launches,
                     "launches_per_training_step": f["per_step"], "seconds": f["seconds"]},
+        "grasp": {"env_steps_per_s_fused_on": g["ppo"]["training/sps_after_first"],
+                  "eval_episode_reward": g["ppo"]["eval/episode_reward"],
+                  "total_loss": g["ppo"]["training/total_loss"], "launches": g_launches,
+                  "launches_per_training_step": g["per_step"], "seconds": g["seconds"],
+                  "fused_ms_per_training_step": g["fused_ms"]},
         "card": name_limit}}))
     print(json.dumps({"kernels": [{
         "name": "pbd_step",
@@ -1741,13 +1933,15 @@ def main():
         "replaces_function": "brax_tpu/sim/kernels.py::_build_tile_step",
         "launches": launches,
         "max_abs_err": max([*errs.values()] + [
-            e for r in (*h_scene.values(), *c_scene.values(), *f_scene.values())
+            e for r in (*h_scene.values(), *c_scene.values(), *f_scene.values(),
+                        *g_scene.values())
             for ck in r["checks"].values()
             if ck.get("rule", "max_errors") == "max_errors"
             for e in ck["max_abs_err_by_field"].values()] + [
-            e for r in c_scene.values() for ck in r["checks"].values()
+            e for r in (*c_scene.values(), g_scene["grasp"]) for ck in r["checks"].values()
             if ck["one_pass"]["rule"] == "max_errors"
-            for e in ck["one_pass"]["max_abs_err_by_field"].values()]),
+            for e in ck["one_pass"]["max_abs_err_by_field"].values()] + [
+            *g["twister"]["max_abs_err_by_field"].values()]),
         "max_abs_err_scope": "every env of every check held by max_errors (rounding-decided "
                              "outliers included); the chaotic checks (chaos_rule) under "
                              "by_scene",
@@ -1776,7 +1970,9 @@ def main():
                                 for name, r in c_main.items()},
                              "PPO v1 halfcheetah": c_launches["pbd_step"],
                              **{f"{name} env.step": r["launches"] for name, r in f_main.items()},
-                             "PPO reacher": f_launches["pbd_step"]},
+                             "PPO reacher": f_launches["pbd_step"],
+                             **{f"{name} env.step": r["launches"] for name, r in g_main.items()},
+                             "PPO grasp": g_launches["pbd_step"]},
         "by_scene": {
             "ant": {"ms": kernel_ms, "ms_host_issued": pbd_by_envs[N_ENVS]["host"],
                     "ms_by_envs": pbd_by_envs, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1805,6 +2001,14 @@ def main():
                       "main_path": f_main[name],
                       "launches_ppo": f_launches["pbd_step"] if name == "reacher" else None}
                for name, r in f_scene.items()},
+            **{name: {"ms": r["ms_by_envs"][N_ENVS]["graph"],
+                      "ms_host_issued": r["ms_by_envs"][N_ENVS]["host"],
+                      "ms_by_envs": r["ms_by_envs"], "plain_ms": r["plain_ms"], **r["bound"],
+                      "checks": r["checks"], "launch": g_launch[name],
+                      "main_path": g_main[name],
+                      "launches_ppo": g_launches["pbd_step"] if name == "grasp" else None}
+               for name, r in g_scene.items()},
+            "swimmer_twister": {"checks": {STATES[1]: g["twister"]}},
         },
         "card": name_limit,
     },

@@ -20,7 +20,8 @@ contact, and for the last two also with their capsule-capsule pairs
 overlapping; then for the scenes without contacts, inverted_pendulum (37
 envs, its 1-wide action), inverted_double_pendulum (19), swimmer (19, 11
 action columns), reacherangle (21, targets past the joint limits) and
-reacher (17), after 10 twin steps.
+reacher (17), after 10 twin steps; and grasp (17 envs) from a reset and
+with its claw closed on the ball (`pbd_parity.grasp_states`).
 """
 
 import shutil
@@ -155,6 +156,12 @@ def main():
         qp, act = scene_state(env, n, steps=10, seed=0, device="cpu",
                               draw=lambda g, name=name, n=n: physics_actions(name, n, g, "cpu"))
         print(name, n, "envs:", max_errors(env.sys, qp, act))
+    from brax_torch.envs.grasp import Grasp
+    from brax_torch.tools.pbd_parity import grasp_states
+
+    env = Grasp(batch_size=17, device="cpu")
+    for state, (qp, act) in grasp_states(env, 17, 0, "cpu").items():
+        print(f"grasp 17 envs, {state}:", max_errors(env.sys, qp, act))
 
 
 # the scenes without contacts (thrusters, angle actuators; reacher), and the

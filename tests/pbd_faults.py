@@ -1,10 +1,11 @@
-"""Planted faults in the PBD kernel's capsule-capsule, thruster/twister and
-angle-actuator sections, and what the parity rules
-(`brax_torch.tools.pbd_parity`) read on them.
+"""Planted faults in the PBD kernel's capsule-capsule (two-way and
+one-way), thruster/twister and angle-actuator (revolute and spherical)
+sections, and what the parity rules (`brax_torch.tools.pbd_parity`) read
+on them.
 
 Each fault is one textual change to `brax_torch/csrc/pbd_step.cu`'s
-PBD_CAPCAP, PBD_FORCES or PBD_ANGLE code, made in a copy under the build
-directory:
+PBD_CAPCAP, PBD_CAPCAP_ONEWAY, PBD_FORCES, PBD_ANGLE or spherical actuator
+code, made in a copy under the build directory:
 
 - `b_sign`: body b's position update takes body a's sign;
 - `no_b_gather`: no body gathers its side-b contacts (BODY_CON_B);
@@ -20,13 +21,32 @@ directory:
   their cart moves in x only, so what shows is what lies past the action:
   the emulation and the card's planted runs put NaNs there;
 - `angle_degrees`: an angle actuator takes its action's degrees as radians;
-- `angle_sign`: an angle actuator pushes with a torque actuator's sign.
+- `angle_sign`: an angle actuator pushes with a torque actuator's sign;
+- `twister_sign`: a twister turns against its action;
+- `oneway_pushes_b`: a one-way capsule-capsule lane takes the two-way
+  branch, which pushes body b back: body b's mass and inertia enter body
+  a's update (the plan lists no one-way contact under body b, and grasp's
+  body b is the frozen palm, so what shows is body a's update);
+- `oneway_static_friction`: a one-way capsule-capsule lane holds static
+  friction by the two-way test, |dlambdat| < |dlambda|, not |dlambdat| <
+  |friction dlambda|;
+- `spherical_angle_sign`: an angle actuator on a spherical joint pushes
+  with a torque actuator's sign;
+- `padded_reads_column_0`: a padded dof of a spherical joint's actuator
+  (no action column) reads column 0 instead of acting as 0.
 
 `b_mass` and `no_friction` are planted in halfcheetah only: pusher's
 capsule-capsule pairs have masses and inverse inertias of 1 on both sides
 and a friction of 0 in its config, so there they change nothing.
 `reference_clip` changes nothing in swimmer, whose action is as wide as
-that clip.
+that clip.  grasp's frictions are all 1, where the two static-friction tests
+agree, so `oneway_static_friction` is planted in `pusher_oneway` (pusher's
+System with its capsule-capsule pairs made one-way, friction 0);
+`padded_reads_column_0` in `grasp_padded` (grasp's System with dof 0's
+column taken from every actuator but the first) and `twister_sign` in
+`swimmer_twister` (swimmer with its torso's thruster made a twister):
+Systems made for them (`pbd_parity.padded_grasp`, `oneway_pusher`,
+`twister_swimmer`), as no default scene has what they change.
 
 On the card,
 
@@ -34,11 +54,13 @@ On the card,
 
 holds this package's kernel and each planted one against the twin at
 4096 envs of each scene (default: v1 halfcheetah, pusher,
-inverted_pendulum, inverted_double_pendulum, swimmer and reacherangle),
+inverted_pendulum, inverted_double_pendulum, swimmer, reacherangle, grasp
+and the made scenes grasp_padded, pusher_oneway and swimmer_twister),
 from the states `chip_smoke.py` holds them in (a reset, 10 twin steps
-after it and, for the capsule-capsule scenes, the pairs overlapping; its
-seeds), over one pass and over the whole step, by the rounding rule and,
-for the capsule-capsule scenes, the chaos rule.  It prints per scene,
+after it and, for the capsule-capsule scenes, the pairs overlapping;
+grasp's reset and its claw closed on the ball; its seeds), over one pass
+and over the whole step, by the rounding rule and, for halfcheetah's and
+pusher's pairs (two-way, and made one-way), the chaos rule.  It prints per scene,
 state and kernel the outlier count of the rounding rule (with
 `rounding_decided` of up to 16 outliers) and the stray count of the chaos
 rule, then replays the state of `tests/test_torch_cuda.py`'s
@@ -82,6 +104,17 @@ FAULTS = {
     "angle_degrees": ("div_rn(ac.act * 3.14159265358979324f, 180.0f)", "ac.act"),
     "angle_sign": ("ts = -((target - angle) * ac.strength);",
                    "ts = (target - angle) * ac.strength;"),
+    "twister_sign": ("if (__ldg(&FORCE_TWISTER[f])) bc.fang = bc.fang + d;",
+                     "if (__ldg(&FORCE_TWISTER[f])) bc.fang = bc.fang - d;"),
+    "oneway_pushes_b": ("cc.capcap = __ldg(&CONTACT_CAPCAP[i]) != 0;",
+                        "cc.capcap = __ldg(&CONTACT_CAPCAP[i]) != 0 || __ldg(&CONTACT_ONEWAY[i]) != 0;"),
+    "oneway_static_friction": ("fabsf(dlambdat) < fabsf(cc.friction * dlambda)",
+                               "fabsf(dlambdat) < fabsf((cc.oneway ? 1.0f : cc.friction) * dlambda)"),
+    "spherical_angle_sign": ("ts = -((target - angles[d]) * ac.strength);",
+                             "ts = (target - angles[d]) * ac.strength;"),
+    "padded_reads_column_0": (
+        "ac.act[d] = (i < PBD_NA && col >= 0) ? in_act[e * n_act + col] : 0.0f;",
+        "ac.act[d] = i < PBD_NA ? in_act[e * n_act + (col >= 0 ? col : 0)] : 0.0f;"),
 }
 # the scenes a fault changes anything in
 FAULT_SCENES = {"b_sign": ("halfcheetah", "pusher"), "no_b_gather": ("halfcheetah", "pusher"),
@@ -90,11 +123,26 @@ FAULT_SCENES = {"b_sign": ("halfcheetah", "pusher"), "no_b_gather": ("halfcheeta
                 "thruster_sign": ("inverted_pendulum", "swimmer"),
                 "force_body": ("inverted_double_pendulum", "swimmer"),
                 "reference_clip": ("inverted_pendulum", "inverted_double_pendulum"),
-                "angle_degrees": ("reacherangle",), "angle_sign": ("reacherangle",)}
+                "angle_degrees": ("reacherangle",), "angle_sign": ("reacherangle",),
+                "twister_sign": ("swimmer_twister",), "oneway_pushes_b": ("grasp",),
+                "oneway_static_friction": ("pusher_oneway",),
+                "spherical_angle_sign": ("grasp",), "padded_reads_column_0": ("grasp_padded",)}
 CAPCAP_SCENES = ("halfcheetah", "pusher")
 FORCE_SCENES = ("inverted_pendulum", "inverted_double_pendulum", "swimmer", "reacherangle")
-SCENES = CAPCAP_SCENES + FORCE_SCENES
+GRASP_SCENES = ("grasp", "grasp_padded")
+# Systems made from a registered scene's (pbd_parity: oneway_pusher,
+# padded_grasp, twister_swimmer): the scene they are made from, and how
+MADE_SCENES = {"grasp_padded": ("grasp", pp.padded_grasp),
+               "pusher_oneway": ("pusher", pp.oneway_pusher),
+               "swimmer_twister": ("swimmer", lambda s: pp.twister_swimmer(s.mass.device))}
+SCENES = CAPCAP_SCENES + FORCE_SCENES + ("grasp",) + tuple(MADE_SCENES)
 N = 4096
+
+
+def scene_system(name, env):
+    """The System of scene `name` on `env`, the env of the registered scene
+    it is made from (MADE_SCENES) or of `name` itself."""
+    return MADE_SCENES[name][1](env.sys) if name in MADE_SCENES else env.sys
 
 
 def planted_text(fault: str) -> str:
@@ -133,20 +181,27 @@ def card_step(lib):
     return step
 
 
-def states(name, env, device):
+def states(name, env, device, sys_=None):
     """chip_smoke.py's states of `name` at N envs, with its seeds: a
     capsule-capsule scene's three, a thruster or angle-actuator scene's two
-    (`pbd_parity.force_scene_states`)."""
-    if name in FORCE_SCENES:
-        return pp.force_scene_states(name, env, N, 0, device)
+    (`pbd_parity.force_scene_states`), grasp's two
+    (`pbd_parity.grasp_states`); `env` is the registered scene's (for a
+    made scene, the one it is made from), whose twin steps run on `sys_`
+    (default: env.sys)."""
+    base = MADE_SCENES[name][0] if name in MADE_SCENES else name
+    if base == "grasp":
+        return pp.grasp_states(env.unwrapped, N, 0, device)
+    if base in FORCE_SCENES:
+        return pp.force_scene_states(base, env, N, 0, device, sys_)
+    sys_ = sys_ or env.sys
     gen = torch.Generator(device=device).manual_seed(0)
     act = lambda: torch.rand((N, env.action_size), generator=gen, device=device) * 2 - 1
     reset = env.reset(gen).qp
     settled = reset
     for _ in range(10):
-        settled, _ = kernels.pbd_step_plain(env.sys, settled, act())
+        settled, _ = kernels.pbd_step_plain(sys_, settled, act())
     return dict(zip(pp.STATES, ((reset, act()), (settled, act()),
-                                pp.capcap_state(name, env.unwrapped, N, 1, device))))
+                                pp.capcap_state(base, env.unwrapped, N, 1, device))))
 
 
 def reading(sys_, qp, act, step, spread, gen, decide_up_to):
@@ -209,10 +264,12 @@ def main(argv):
     device = torch.device("cuda")
     card = cuda_build.card()
     print(card)
-    scenes = {name: envs.create(name, episode_length=1000, batch_size=N)
+    scenes = {name: envs.create(MADE_SCENES.get(name, (name,))[0], episode_length=1000,
+                                batch_size=N)
               for name in (argv or SCENES)}
-    systems = {(name, pass_): (pp.one_pass(e.sys) if pass_ == "one pass" else e.sys)
-               for name, e in scenes.items() for pass_ in ("one pass", "whole step")}
+    whole = {name: scene_system(name, e) for name, e in scenes.items()}
+    systems = {(name, pass_): (pp.one_pass(whole[name]) if pass_ == "one pass" else whole[name])
+               for name in scenes for pass_ in ("one pass", "whole step")}
     planted = {f: planted_path(f) for f in FAULTS}
     sources = {(key, f): pbd_turns.other_source(s, planted[f])
                for key, s in systems.items() for f in FAULTS if key[0] in FAULT_SCENES[f]}
@@ -221,11 +278,11 @@ def main(argv):
               "max_outliers": pp.MAX_OUTLIERS, "chaos_share": pp.CHAOS_SHARE, "readings": {}}
     gen = torch.Generator(device=device).manual_seed(7)
     for name, env in scenes.items():
-        for state, (qp, act) in states(name, env, device).items():
+        for state, (qp, act) in states(name, env, device, whole[name]).items():
             for pass_ in ("one pass", "whole step"):
                 sys_ = systems[name, pass_]
                 # the chaos rule's readings for the chaotic capsule-capsule scenes
-                chaotic = name in CAPCAP_SCENES
+                chaotic = name in CAPCAP_SCENES + ("pusher_oneway",)
                 spread = pp.twin_spread(sys_, qp, act) if chaotic else None
                 own = pp.twin_own_outside(sys_, qp, act, gen) if chaotic else None
                 kernels_ = {"kernel": kernels.pbd_step,

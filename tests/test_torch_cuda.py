@@ -381,6 +381,145 @@ def test_scenes_without_forces_or_angle_compile_as_without_their_sections(cuda, 
     assert _sass(whole) == _sass(cut) != []
 
 
+@pytest.mark.parametrize("n", [1, 2, 4097])
+def test_twister_kernel_matches_twin_by_batch(cuda, n):
+    """swimmer with its torso's thruster made a twister
+    (pbd_parity.twister_swimmer; no default scene has one): the twister
+    branch of PBD_FORCES by the rounding rule, after 10 twin steps."""
+    from brax_torch.tools.pbd_parity import physics_actions, twister_swimmer
+    from tests.test_torch_pbd_launch import Scene, _config, scene_state
+
+    sys_ = twister_swimmer(cuda)
+    assert kernels.plan(sys_).force_twister == (False, False, True)
+    env = Scene(_config("swimmer"), batch_size=n, device=cuda)
+    qp, act = scene_state(env, n, steps=10, seed=0, device=cuda,
+                          draw=lambda gen: physics_actions("swimmer", n, gen, cuda))
+    before = kernels.pbd_step_launch.launches
+    _rounding_rule_holds(sys_, qp, act, cuda)
+    assert kernels.pbd_step_launch.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# grasp: one-way capsule-capsule contacts (PBD_CAPCAP_ONEWAY) and angle
+# actuators on spherical joints (PBD_SPHERICAL_ANGLE)
+# ---------------------------------------------------------------------------
+
+
+def _grasp_states(device, n):
+    from brax_torch.envs.grasp import Grasp
+    from brax_torch.tools.pbd_parity import grasp_states
+
+    env = Grasp(batch_size=n, device=device)
+    return env, grasp_states(env, n, 0, device)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4097])
+def test_grasp_kernel_matches_twin_by_batch(cuda, n):
+    """grasp from a reset and with its claw closed on the ball, over one
+    pass and over the whole step, by the rules chip_smoke.py holds it to
+    (pbd_parity.RULES), on ragged batches: 16 lanes, 2 envs a warp."""
+    from brax_torch.tools import pbd_parity
+
+    env, states = _grasp_states(cuda, n)
+    assert kernels.plan(env.sys).oneway and kernels.plan(env.sys).lanes == 16
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for state, (qp, act) in states.items():
+        before = kernels.pbd_step_launch.launches
+        pbd_parity.hold_capcap("grasp", state, env.sys, qp, act, gen, f"grasp {state} ")
+        assert kernels.pbd_step_launch.launches == before + 2
+
+
+@pytest.mark.parametrize("made", ["grasp_padded", "pusher_oneway"])
+def test_made_scenes_match_twin(cuda, made):
+    """grasp_padded (padded spherical angle dofs, pbd_parity.padded_grasp)
+    from the claw closed on the ball, and pusher_oneway (a one-way pair
+    whose body b moves, pbd_parity.oneway_pusher) from its pairs
+    overlapping, at 4097 envs over one pass and the whole step, by the
+    rules pbd_parity.RULES names (grasp's: the rounding rule; and
+    pusher_oneway's: the chaos rule, its step from overlapping pairs being
+    chaotic over one pass and the whole step)."""
+    from brax_torch.tools import pbd_parity
+    from tests.test_torch_pbd_launch import Scene, _config
+
+    n = 4097
+    if made == "grasp_padded":
+        env, states = _grasp_states(cuda, n)
+        sys_, rules, state = pbd_parity.padded_grasp(env.sys), "grasp", "claw closed on the ball"
+    else:
+        env = Scene(_config("pusher"), batch_size=n, device=cuda)
+        sys_, rules, state = pbd_parity.oneway_pusher(env.sys), made, "capsule-capsule contact"
+        states = {state: pbd_parity.capcap_state("pusher", env, n, 0, cuda)}
+    qp, act = states[state]
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    pbd_parity.hold_capcap(rules, state, sys_, qp, act, gen, f"{made} ")
+
+
+def test_grasp_kernel_gives_the_same_bits_twice_and_from_a_graph(cuda):
+    env, states = _grasp_states(cuda, 1024)
+    qp, act = states["claw closed on the ball"]
+    want, info_want = kernels.pbd_step(env.sys, qp, act)
+    again, info_again = kernels.pbd_step(env.sys, qp, act)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernels.pbd_step(env.sys, qp, act)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, info_got = kernels.pbd_step(env.sys, qp, act)
+    got.ang.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    fields = lambda q, i: (q.pos, q.rot, q.vel, q.ang, i.contact.vel, i.contact.ang)
+    for x, y, z in zip(fields(want, info_want), fields(again, info_again),
+                       fields(got, info_got)):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+def test_grasp_acrobot_ur5e_env_step_launches_the_kernel_once(cuda):
+    from brax_torch import envs
+
+    for name, obs, n_act in (("grasp", 132, 39), ("acrobot", 4, 1), ("ur5e", 66, 6)):
+        env = envs.create(name, batch_size=64)
+        state = env.reset(torch.Generator(device=cuda).manual_seed(0))
+        before = kernels.pbd_step_launch.launches
+        for _ in range(3):
+            state = env.step(state, torch.rand((64, n_act), device=cuda) * 2 - 1)
+        assert kernels.pbd_step_launch.launches == before + 3
+        assert state.obs.shape == (64, obs) and bool(torch.isfinite(state.obs).all())
+
+
+def test_kernel_raises_on_box_plane(cuda):
+    """A System with a contact group the kernel lacks (fetch's one-way
+    BoxPlane) raises NotImplementedError on CUDA tensors, and launches
+    nothing."""
+    env, qp, act = _contact_state(cuda, n=32, steps=0)
+    box_plane = type("BoxPlane", (), {"com": env.sys.contact_groups[0].com})()
+    other = dataclasses.replace(env.sys, contact_groups=env.sys.contact_groups + (box_plane,))
+    before = kernels.pbd_step_launch.launches
+    with pytest.raises(NotImplementedError, match="BoxPlane contacts"):
+        kernels.pbd_step(other, qp, act)
+    assert kernels.pbd_step_launch.launches == before
+
+
+@pytest.mark.parametrize("name", ["ant", "humanoid", "humanoidstandup", "halfcheetah", "pusher",
+                                  "inverted_pendulum", "inverted_double_pendulum", "swimmer",
+                                  "reacherangle", "reacher"])
+def test_earlier_scenes_compile_as_without_the_grasp_sections(cuda, name):
+    """The earlier scenes hold none of grasp's sections: their SASS equals
+    that of a build whose source has every PBD_CAPCAP_ONEWAY and
+    PBD_SPHERICAL_ANGLE block cut out."""
+    from tests.test_torch_pbd_launch import _system
+
+    whole = kernels.kernel_source(_system(name))
+    cut = whole.with_name(whole.stem + "_without_grasp.cu")
+    cut.write_text(_without_blocks(whole.read_text(), ("PBD_CAPCAP_ONEWAY",
+                                                       "PBD_SPHERICAL_ANGLE")))
+    assert "#ifdef PBD_CAPCAP_ONEWAY" in whole.read_text()
+    assert "#ifdef PBD_SPHERICAL_ANGLE" not in cut.read_text()
+    assert _sass(whole) == _sass(cut) != []
+
+
 # ---------------------------------------------------------------------------
 # fused MLP kernels
 # ---------------------------------------------------------------------------

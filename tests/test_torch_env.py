@@ -36,7 +36,7 @@ def test_create_builds_the_wrapper_stack():
 
 def test_create_names_envs_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        envs.create("grasp", device="cpu")
+        envs.create("fetch", device="cpu")
 
 
 def test_reset_draws_its_noise_from_the_generator():

@@ -106,12 +106,12 @@ def test_supported_names_missing_features(states):
     assert kernels.supported(env.sys)
     # spherical joints are covered: humanoid's System is supported
     assert kernels.supported(Humanoid(batch_size=1, device="cpu").sys)
-    # angle actuators on revolute joints are covered; on spherical ones not yet
+    # angle actuators on revolute and (grasp's) spherical joints are covered
     acts = (dataclasses.replace(env.sys.actuator_groups[0], kind="angle"),)
     assert kernels.supported(dataclasses.replace(env.sys, actuator_groups=acts))
     h_sys = Humanoid(batch_size=1, device="cpu").sys
     h_acts = (dataclasses.replace(h_sys.actuator_groups[0], kind="angle"),)
+    assert kernels.supported(dataclasses.replace(h_sys, actuator_groups=h_acts))
     other = dataclasses.replace(h_sys, actuator_groups=h_acts, collider_cutoff=4)
-    assert kernels.unsupported_features(other) == ["collider_cutoff",
-                                                   "angle actuators on spherical joints"]
+    assert kernels.unsupported_features(other) == ["collider_cutoff"]
     assert not kernels.supported(other)

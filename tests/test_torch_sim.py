@@ -70,12 +70,13 @@ def test_build_raises_on_features_not_ported():
     cfg.actuators[0] = dataclasses.replace(cfg.actuators[0], kind="angle")
     sys, art = builder.build(cfg, device="cpu")
     assert [a.kind for a in sys.actuator_groups] == ["angle", "torque"]
-    # an angle actuator on a spherical joint is not ported: its step raises
+    # an angle actuator on a spherical joint is built and steps now (grasp's)
     cfg.joints[0].angle_limits.append((-10.0, 10.0))
     sys, art = builder.build(cfg, device="cpu")
     qp = initial.default_qp(art, device="cpu")
-    with pytest.raises(NotImplementedError, match="angle actuators on spherical joints"):
-        kernels.pbd_step_plain(sys, qp, torch.zeros((1, art.action_size)))
+    out, _ = kernels.pbd_step_plain(sys, qp, torch.zeros((1, art.action_size)))
+    assert [g.kind for g in sys.joint_groups] == ["spherical"]
+    assert bool(torch.isfinite(out.pos).all())
     cfg = ant_config()
     cfg.dynamics_mode = "legacy_spring"
     for j in cfg.joints:
