@@ -1,28 +1,34 @@
 """Environment registry.
 
-Counterpart of `brax_tpu/envs/__init__.py`.  Ported so far: ant (with the
-fork's default of contact-force observations), the humanoids ("humanoid" is
-the fork's humanoid_new, as in the JAX registry; "humanoid_legacy",
-"humanoidstandup"), halfcheetah and pusher (whose scenes have two-way
-capsule-capsule contacts), inverted_pendulum, inverted_double_pendulum and
-swimmer (thruster forces), reacherangle (angle actuators), reacher, grasp
-(angle actuators on spherical joints, one-way capsule-capsule contacts
-against its frozen palm), acrobot, ur5e and the trainer test env fast; the
-other environments are queued in ROADMAP.md.
+Counterpart of `brax_tpu/envs/__init__.py`, with every env of the JAX
+registry: ant (with the fork's default of contact-force observations), the
+humanoids ("humanoid" is the fork's humanoid_new, as in the JAX registry;
+"humanoid_legacy", "humanoidstandup"), halfcheetah and pusher (whose
+scenes have two-way capsule-capsule contacts), hopper and walker2d,
+inverted_pendulum, inverted_double_pendulum and swimmer (thruster forces),
+reacherangle (angle actuators), reacher, grasp (angle actuators on
+spherical joints, one-way capsule-capsule contacts against its frozen
+palm), acrobot, ur5e, fetch (one-way box-plane contacts of its lower legs)
+and the trainer test env fast.  `register` adds a factory under a name and
+`create_fn` binds `create`'s arguments, as in the JAX registry.  What is
+not ported (the legacy_spring configs, queue A item 6 in ROADMAP.md)
+raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Callable, Optional
 
 from brax_torch.envs import wrappers
 from brax_torch.envs.acrobot import Acrobot
 from brax_torch.envs.ant import Ant
 from brax_torch.envs.base import Env, State, Wrapper
 from brax_torch.envs.fast import Fast
+from brax_torch.envs.fetch import Fetch
 from brax_torch.envs.grasp import Grasp
 from brax_torch.envs.halfcheetah import Halfcheetah
+from brax_torch.envs.hopper import Hopper
 from brax_torch.envs.humanoid import Humanoid, HumanoidLegacy
 from brax_torch.envs.humanoid_standup import HumanoidStandup
 from brax_torch.envs.inverted_double_pendulum import InvertedDoublePendulum
@@ -32,13 +38,16 @@ from brax_torch.envs.reacher import Reacher
 from brax_torch.envs.reacherangle import ReacherAngle
 from brax_torch.envs.swimmer import Swimmer
 from brax_torch.envs.ur5e import Ur5e
+from brax_torch.envs.walker2d import Walker2d
 
 _envs = {
     "acrobot": Acrobot,
     "ant": functools.partial(Ant, use_contact_forces=True),
     "fast": Fast,
+    "fetch": Fetch,
     "grasp": Grasp,
     "halfcheetah": Halfcheetah,
+    "hopper": Hopper,
     "humanoid": Humanoid,
     "humanoid_legacy": HumanoidLegacy,
     "humanoidstandup": HumanoidStandup,
@@ -49,7 +58,13 @@ _envs = {
     "reacherangle": ReacherAngle,
     "swimmer": Swimmer,
     "ur5e": Ur5e,
+    "walker2d": Walker2d,
 }
+
+
+def register(name: str, factory) -> None:
+    """Adds an env factory, called as factory(batch_size=..., device=..., **kwargs)."""
+    _envs[name] = factory
 
 
 def create(
@@ -65,8 +80,7 @@ def create(
     """Creates a batched Env on `device` with the given wrapper stack."""
     if env_name not in _envs:
         raise NotImplementedError(
-            f"env {env_name!r} is not ported yet; brax_torch has {sorted(_envs)} "
-            "(see ROADMAP.md, queue A items 4-5 and queue B item 1)"
+            f"env {env_name!r} is not registered; brax_torch has {sorted(_envs)}"
         )
     env = _envs[env_name](batch_size=batch_size or 1, device=device, **kwargs)
     if episode_length is not None:
@@ -78,3 +92,8 @@ def create(
     if eval_metrics:
         env = wrappers.EvalWrapper(env)
     return env
+
+
+def create_fn(env_name: str, **kwargs) -> Callable[..., Env]:
+    """`create` with env_name and kwargs bound."""
+    return functools.partial(create, env_name, **kwargs)

@@ -16,7 +16,6 @@ import torch
 
 from brax_torch.envs import base
 from brax_torch.envs.assets.acrobot import acrobot_config
-from brax_torch.envs.humanoid import _no_legacy_spring
 from brax_torch.envs.inverted_pendulum import NOISE, joint_noise
 from brax_torch.sim.types import QP, Tensor
 
@@ -27,7 +26,8 @@ class Acrobot(base.Env):
     name = "acrobot"
 
     def __init__(self, legacy_spring=False, batch_size=1, device="cuda", **kwargs):
-        _no_legacy_spring(legacy_spring, self.name)
+        # legacy_spring is taken and ignored, as the JAX env ignores it: the
+        # scene has no spring config
         super().__init__(config=acrobot_config(), batch_size=batch_size, device=device)
 
     def reset(self, rng: torch.Generator) -> base.State:

@@ -27,7 +27,6 @@ import torch
 from brax_torch import maths
 from brax_torch.envs import base
 from brax_torch.envs.assets.grasp import grasp_config
-from brax_torch.envs.humanoid import _no_legacy_spring
 from brax_torch.sim.types import QP, Info, Tensor
 
 _METRICS = ("hits", "touchingObject", "movingToObject", "movingObjectToTarget", "closeToObject")
@@ -39,7 +38,8 @@ class Grasp(base.Env):
     name = "grasp"
 
     def __init__(self, legacy_spring=False, batch_size=1, device="cuda", **kwargs):
-        _no_legacy_spring(legacy_spring, self.name)
+        # legacy_spring is taken and ignored, as the JAX env ignores it: the
+        # scene has no spring config
         super().__init__(config=grasp_config(), batch_size=batch_size, device=device)
         index = self.art.body_index
         self._object_idx = index["Object"]

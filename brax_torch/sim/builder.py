@@ -6,9 +6,9 @@ tensor; index tables stay host numpy.  The port builds PBD dynamics, revolute
 joints, spherical joints (a PBD scene whose joints mix dofs, or has a 2-dof
 joint, is "sphericalized": each joint is padded to 3 dofs with (0, 0)
 limits), torque and angle actuators, thruster and twister forces (their
-action columns follow the actuators'), one-way capsule-plane contacts and
-capsule-capsule contacts, one-way (body b frozen) or two-way.  Any other
-feature raises NotImplementedError naming it.
+action columns follow the actuators'), one-way capsule-plane and box-plane
+contacts and capsule-capsule contacts, one-way (body b frozen) or two-way.
+Any other feature raises NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import torch
 from brax_torch.sim import actuators as actuators_mod
 from brax_torch.sim import colliders as colliders_mod
 from brax_torch.sim import config as cfg
+from brax_torch.sim import geometry
 from brax_torch.sim import joints as joints_mod
 from brax_torch.sim.integrator import Integrator
 from brax_torch.sim.system import System
@@ -327,6 +328,14 @@ def _capsule_ends(col: cfg.Collider) -> List[np.ndarray]:
     return [pos + e * axis * seg for e in ends]
 
 
+def _box_corners(col: cfg.Collider) -> np.ndarray:
+    """A box collider's eight corners, collider rotation and offset included."""
+    rot = np_euler_to_quat(col.rotation)
+    corners = geometry.BOX_CORNERS * np.asarray(col.box.halfsize, dtype=np.float64)
+    corners = np.stack([np_rotate(c, rot) for c in corners])
+    return corners + np.asarray(col.position, dtype=np.float64)
+
+
 # (type_a, type_b) in the order the JAX builder applies contact groups
 _PAIR_TYPES = [
     ("box", "plane"),
@@ -402,6 +411,10 @@ def _build_contact_groups(config: cfg.Config, body_index, mass, inv_inertia, f32
             if (type_a, type_b, b_is_frozen) == ("capsule", "plane", True):
                 g = _capsule_plane(sel, com, f32)
                 num_contacts += g.end.shape[0] * g.end.shape[1]
+            elif (type_a, type_b, b_is_frozen) == ("box", "plane", True):
+                g = colliders_mod.BoxPlane(
+                    com=com, corner=f32(np.stack([_box_corners(ca) for ca, _, _, _ in sel])))
+                num_contacts += g.corner.shape[0] * g.corner.shape[1]
             elif (type_a, type_b) == ("capsule", "capsule"):
                 g = _capsule_capsule(sel, com, f32)
                 num_contacts += g.end_a.shape[0]

@@ -4,8 +4,9 @@ Counterpart of `brax_tpu/sim/colliders.py`.  A contact group holds all pairs
 of one narrowphase type as static pair tables with a leading (np,) axis and
 yields a manifold of shape (N, np, ncontact, ...).  Each body's update is
 averaged over the contacts of the group that touch it, then summed across
-groups.  Ported: the one-way capsule-plane group (the second body frozen,
-as the ground is) and the capsule-capsule groups, two-way (both bodies
+groups.  Ported: the one-way capsule-plane and box-plane groups (the second
+body frozen, as the ground is; a box's eight corners are its contacts) and
+the capsule-capsule groups, two-way (both bodies
 move) and one-way (the second capsule's body frozen, as grasp's palm is:
 only the first body is moved, and only its mass and inertia enter the
 updates): their PBD position and velocity passes and the velocity-level
@@ -70,6 +71,25 @@ class CapsulePlane:
 
 
 @dataclass
+class BoxPlane:
+    """Box corners vs an infinite +z plane: a capsule-plane contact of
+    radius 0 at each corner."""
+
+    com: GroupCommon
+    corner: Tensor = None  # (np, 8, 3) body-local corners (incl. collider offset)
+
+    def contact(self, qp_a: QP, qp_b: QP) -> Contact:
+        rpos_off = maths.rotate(self.corner, qp_a.rot[..., None, :])
+        pos = qp_a.pos[..., None, :] + rpos_off
+        vel = qp_a.vel[..., None, :] + maths.cross(qp_a.ang[..., None, :], rpos_off)
+        z = torch.zeros_like(qp_b.pos)
+        z[..., 2] = 1.0
+        normal = maths.rotate(z, qp_b.rot)[..., None, :]
+        penetration = vdot(qp_b.pos[..., None, :] - pos, normal)
+        return Contact(pos, vel, normal.expand(pos.shape), penetration)
+
+
+@dataclass
 class CapsuleCapsule:
     """Capsule vs capsule, one contact per pair, both bodies moving."""
 
@@ -108,11 +128,12 @@ def _b1(x: Tensor) -> Tensor:
 
 
 def _check_ported(group):
-    """Every group but the one-way capsule-plane and the capsule-capsule
-    ones is still queued."""
-    if isinstance(group, CapsulePlane) and not group.com.one_way:
+    """Every group but the one-way capsule-plane and box-plane ones and the
+    capsule-capsule ones is still queued."""
+    if isinstance(group, (CapsulePlane, BoxPlane)) and not group.com.one_way:
         raise NotImplementedError(
-            "two-way CapsulePlane contacts are not ported yet (see ROADMAP.md, queue B item 1)")
+            f"two-way {type(group).__name__} contacts are not ported yet (see ROADMAP.md, "
+            "queue B item 1)")
 
 
 def _scatter_average(vals_a, vals_b, com: GroupCommon, nb: int, eps: float):

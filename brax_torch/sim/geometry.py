@@ -1,19 +1,26 @@
 """Narrowphase geometry, batch-first.
 
-Counterpart of `brax_tpu/sim/geometry.py`, limited to what the capsule-plane
-and capsule-capsule colliders need: the contact point, normal and
-penetration of capsule cap spheres against an infinite plane, and the
-closest points of two segments.  Triangle and clipping routines arrive
-with the colliders that use them.
+Counterpart of `brax_tpu/sim/geometry.py`, limited to what the capsule-plane,
+box-plane and capsule-capsule colliders need: the contact point, normal and
+penetration of capsule cap spheres against an infinite plane, a unit box's
+corners, and the closest points of two segments.  Triangle and clipping
+routines arrive with the colliders that use them.
 """
 
 from __future__ import annotations
 
+import itertools
+
+import numpy as np
 import torch
 
 from brax_torch import maths
 from brax_torch.maths import dot1, vdot
 from brax_torch.sim.types import Tensor
+
+# the corners of a unit box, in the JAX package's order:
+# itertools.product((-1, 1), (-1, 1), (-1, 1))
+BOX_CORNERS = np.array(list(itertools.product((-1, 1), (-1, 1), (-1, 1))), dtype=np.float64)
 
 
 def cap_ends_plane(pos_a: Tensor, rot_a: Tensor, end: Tensor, radius: Tensor,

@@ -18,6 +18,7 @@ import torch
 from brax_torch import maths
 from brax_torch.sim import config as cfg
 from brax_torch.sim.builder import BuildArtifacts, np_euler_to_quat
+from brax_torch.sim.geometry import BOX_CORNERS
 from brax_torch.sim.types import QP, Tensor
 
 
@@ -196,9 +197,11 @@ def _min_z(pos: Tensor, rot: Tensor, body: cfg.Body) -> Tensor:
                 z = pos[..., 2] + sphere_pos[..., 2] - col.capsule.radius
                 result = torch.minimum(result, z)
         elif col.box is not None:
-            raise NotImplementedError(
-                "box colliders are not ported yet (see ROADMAP.md, queue A item 5)"
-            )
+            crot = _f32(np_euler_to_quat(col.rotation), device)
+            corners = _f32(BOX_CORNERS, device) * _f32(col.box.halfsize, device)
+            corners = maths.rotate(corners, crot[None, :]) + _f32(col.position, device)
+            corners = maths.rotate(corners, rot[..., None, :]) + pos[..., None, :]
+            result = torch.minimum(result, torch.min(corners[..., 2], dim=-1).values)
         else:
             result = torch.clamp(result, max=0.0)
     return result

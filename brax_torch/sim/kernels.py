@@ -29,8 +29,11 @@ grasp) PBD_ANGLE, which compiles their PD torque, on revolute joints or,
 beside PBD_SPHERICAL, per dof of a spherical joint.  A scene with one-way
 capsule-capsule contacts (grasp's ball against its frozen palm) defines
 PBD_CAPCAP_ONEWAY beside PBD_CAPCAP: such a lane takes the capsule-capsule
-contact point and the one-way update of body a alone.  A scene without a
-group compiles none of its code.
+contact point and the one-way update of body a alone.  A one-way box-plane
+group (fetch's lower legs on the ground) needs no section of its own:
+`pack_tables` writes each box corner as a capsule-plane record of radius 0,
+as the Pallas body packs it, so a box's eight corners run on eight
+capsule-plane lanes.  A scene without a group compiles none of its code.
 """
 
 from __future__ import annotations
@@ -99,14 +102,14 @@ def unsupported_features(sys: System, n_act: int = 0) -> List[str]:
         if f.kind not in FORCE_KINDS:
             missing.append(f"{f.kind} forces")
     for c in sys.contact_groups:
-        if isinstance(c, colliders_mod.CapsulePlane):
+        if isinstance(c, (colliders_mod.CapsulePlane, colliders_mod.BoxPlane)):
             if not c.com.one_way:
-                missing.append("two-way CapsulePlane contacts")
+                missing.append(f"two-way {type(c).__name__} contacts")
         elif not isinstance(c, colliders_mod.CapsuleCapsule):
             missing.append(f"{type(c).__name__} contacts")
     if sys.num_bodies > MAX_BODIES:
         missing.append(f"{sys.num_bodies} bodies (the kernel holds {MAX_BODIES})")
-    ported = (colliders_mod.CapsulePlane, colliders_mod.CapsuleCapsule)
+    ported = (colliders_mod.CapsulePlane, colliders_mod.BoxPlane, colliders_mod.CapsuleCapsule)
     if sum(_n_contacts(c) for c in sys.contact_groups if isinstance(c, ported)) > MAX_CONTACTS:
         missing.append(f"more than {MAX_CONTACTS} contact points")
     if n_act > MAX_ACT:
@@ -121,11 +124,14 @@ def supported(sys: System) -> bool:
 
 def _n_contacts(c) -> int:
     """Contact points of a group: a capsule-plane group's cap ends per pair,
-    one per capsule-capsule pair."""
+    a box-plane group's eight corners per pair, one per capsule-capsule
+    pair."""
     if isinstance(c, colliders_mod.CapsuleCapsule):
         return c.end_a.shape[0]
     if isinstance(c, colliders_mod.CapsulePlane):
         return c.end.shape[0] * c.end.shape[1]
+    if isinstance(c, colliders_mod.BoxPlane):
+        return c.corner.shape[0] * c.corner.shape[1]
     raise NotImplementedError(f"{type(c).__name__} contacts are not ported yet (see ROADMAP.md, "
                               "queue B item 1)")
 
@@ -151,7 +157,9 @@ def pack_tables(sys: System) -> Tuple[np.ndarray, np.ndarray]:
     and contact records in the float table: a capsule-plane contact's is
     C_SIZE floats (end[3], radius, friction, elasticity), a capsule-capsule
     one's CC_SIZE (end_a[3], off_a[3], radius_a, end_b[3], off_b[3],
-    radius_b, friction, elasticity: the CC_* offsets) and force records
+    radius_b, friction, elasticity: the CC_* offsets; a box corner's is a
+    capsule-plane record with the corner as its end and radius 0, as the
+    Pallas body packs it) and force records
     (strength, mass) in the float table; joint (parent, child), actuator
     (joint, an action column per dof, -1 for a padded dof and past the
     joint's dofs), contact (group, body a, body b) and force (body, kind:
@@ -202,7 +210,10 @@ def pack_tables(sys: System) -> Tuple[np.ndarray, np.ndarray]:
                        friction[p], elasticity[p]]
                 il += [gi, int(c.com.body_a[p]), int(c.com.body_b[p])]
             continue
-        end, radius = f64(c.end), f64(c.radius)
+        if isinstance(c, colliders_mod.BoxPlane):
+            end, radius = f64(c.corner), np.zeros(c.corner.shape[0])
+        else:
+            end, radius = f64(c.end), f64(c.radius)
         for p in range(end.shape[0]):
             for e in range(end.shape[1]):
                 fl += [*end[p, e], radius[p], friction[p], elasticity[p]]

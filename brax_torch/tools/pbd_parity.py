@@ -1,8 +1,9 @@
 """The rules that hold the v1 PBD kernel (`kernels.pbd_step`) to its plain
 twin (`kernels.pbd_step_plain`) on the same inputs, the states of v1
 halfcheetah and pusher whose two-way capsule-capsule pairs overlap, the
-physics actions of the thruster and angle-actuator scenes, grasp's states
-(its claw closed on the ball), and Systems made for what no default scene
+physics actions of the thruster and angle-actuator scenes and of hopper
+and walker2d, grasp's states (its claw closed on the ball), fetch's (its
+feet on the ground), and Systems made for what no default scene
 has (a one-way pair whose body b moves, padded spherical angle dofs, a
 twister).
 
@@ -92,6 +93,19 @@ RULES = {
     # the CPU emulation from both states
     "grasp": {"reset": ("max_errors", "max_errors"),
               "claw closed on the ball": ("max_errors", "max_errors")},
+    # fetch (FETCH_STATES below), hopper and walker2d (a reset and 10 twin
+    # steps after it): the rounding rule over one pass and the whole step.
+    # Their kernels kept every env within TOLERANCE of the twin in the CPU
+    # emulation; at 4096 envs on the CPU, fed its input with relative noise
+    # of 1e-7, the twin itself left TOLERANCE in at most 1 env of a fetch
+    # state, 2 of walker2d's reset (a contact's restitution test at the
+    # velocity threshold) and none of hopper's, three draws each
+    "fetch": {"reset": ("max_errors", "max_errors"),
+              "feet on the ground": ("max_errors", "max_errors")},
+    "hopper": {"reset": ("max_errors", "max_errors"),
+               "after 10 twin steps": ("max_errors", "max_errors")},
+    "walker2d": {"reset": ("max_errors", "max_errors"),
+                 "after 10 twin steps": ("max_errors", "max_errors")},
 }
 
 
@@ -306,10 +320,10 @@ def hold(rule, sys_, qp, act, gen, label):
 
 
 def hold_capcap(name, state, sys_, qp, act, gen, label):
-    """A capsule-capsule scene's kernel (halfcheetah, pusher, grasp)
-    against the twin from one state, over one pass and over the whole step,
-    each by the rule RULES names.  Raises where a rule fails; returns the
-    record."""
+    """A scene's kernel (the capsule-capsule scenes halfcheetah, pusher and
+    grasp; fetch, hopper and walker2d) against the twin from one state, over
+    one pass and over the whole step, each by the rule RULES names.  Raises
+    where a rule fails; returns the record."""
     one, whole = RULES[name][state]
     own = twin_own_outside(sys_, qp, act, gen)
     print(f"parity {label}: the twin leaves the tolerance in {own} envs of {qp.pos.shape[0]} "
@@ -373,11 +387,13 @@ def capcap_share(sys_, qp):
     return float((torch.cat([p.flatten(1) for p in pens], dim=1) > 0).any(dim=1).float().mean())
 
 
-# the scenes without contacts (thrusters: the inverted pendulums, swimmer;
-# angle actuators: reacherangle; reacher), and the width of each one's
-# physics action: the env's, and swimmer's 9 viscosity columns after its 2
+# the scenes held from a reset and 10 twin steps after it: those without
+# contacts (thrusters: the inverted pendulums, swimmer; angle actuators:
+# reacherangle; reacher) and hopper and walker2d (one-way capsule-plane
+# contacts), and the width of each one's physics action: the env's, and
+# swimmer's 9 viscosity columns after its 2
 PHYSICS_ACT = {"inverted_pendulum": 1, "inverted_double_pendulum": 1, "swimmer": 11,
-               "reacherangle": 2, "reacher": 2}
+               "reacherangle": 2, "reacher": 2, "hopper": 3, "walker2d": 6}
 
 
 def physics_actions(name, n, gen, device):
@@ -445,6 +461,41 @@ def grasp_states(env, n, seed, device):
             qp, claw_closing_action(env, n, gen, device)))
     states[GRASP_STATES[1]] = env.physics_input(qp, claw_closing_action(env, n, gen, device))
     return states
+
+
+# fetch: its states, a reset and its feet on the ground (each env holding a
+# small torque of +-FETCH_HOLD for FETCH_SETTLE_STEPS twin steps: 2-4 corners
+# of a lower leg's box on the ground, ~1e-4 deep, in 97.6% of the legs of 1024
+# CPU draws; the reset has none below it)
+FETCH_STATES = ("reset", "feet on the ground")
+FETCH_SETTLE_STEPS = 15
+FETCH_HOLD = 0.02
+
+
+def fetch_states(env, n, seed, device):
+    """{state: (qp, act)} of fetch (`env` unwrapped, n envs): from a reset
+    (every box corner of the lower legs exactly on the ground, as
+    `default_qp` lifts the tree: the corners are pushed by the first
+    half-substep's fall, not by rounding) on uniform actions in [-1, 1], and
+    with its feet on the ground after FETCH_SETTLE_STEPS twin steps of an
+    action of +-FETCH_HOLD per env, on that action again."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qp = env.reset(gen).qp
+    rand = lambda scale: (torch.rand((n, env.action_size), generator=gen, device=device) * 2
+                          - 1) * scale
+    states = {FETCH_STATES[0]: (qp, rand(1.0))}
+    hold = rand(FETCH_HOLD)
+    for _ in range(FETCH_SETTLE_STEPS):
+        qp, _ = kernels.pbd_step_plain(env.sys, qp, hold)
+    states[FETCH_STATES[1]] = (qp, hold)
+    return states
+
+
+def corners_down(env, qp):
+    """(n, legs) the box corners of each lower leg of fetch below the ground."""
+    (g,) = env.sys.contact_groups
+    pen = g.contact(qp.take(g.com.body_a), qp.take(g.com.body_b)).penetration
+    return (pen > 0).sum(dim=-1)
 
 
 def fingertips_on_ball(env, qp):

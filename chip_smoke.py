@@ -6,9 +6,9 @@
 2. builds brax_torch/csrc/pbd_step.cu with nvcc (sm_90a) for the v1 ant's,
    humanoid's, humanoidstandup's, halfcheetah's, pusher's,
    inverted_pendulum's, inverted_double_pendulum's, swimmer's,
-   reacherangle's, reacher's, grasp's, acrobot's and ur5e's Systems (and
-   grasp's one-pass System and swimmer's with a twister; each scene's
-   header in front,
+   reacherangle's, reacher's, grasp's, acrobot's, ur5e's, fetch's,
+   hopper's and walker2d's Systems (and grasp's and fetch's one-pass
+   Systems and swimmer's with a twister; each scene's header in front,
    brax_torch.sim.kernels.kernel_source) and prints ptxas's register and
    spill reports and the launches (lanes per env, envs per block, resident
    blocks per SM, waves);
@@ -96,6 +96,20 @@
    DEFAULT_PPO_PARAMS["grasp"] for 2 training steps and one evaluation of
    128 envs, with exact launch counts (per training step 80 PBD, 272 fused
    forward, 128 backward) and its env-steps/s;
+9e. v1 fetch (the PBD kernel's one-way box-plane contacts: each box
+   corner a capsule-plane lane of radius 0, 32 lanes, eight corners to a
+   lower leg) held against the twin at 4096 envs from a reset and with its
+   feet on the ground (pbd_parity.fetch_states), and v1 hopper and
+   walker2d from a reset and after 10 twin steps, over one pass and over
+   the whole step, each by the rule pbd_parity.RULES names (the rule of
+   step 3); the main paths envs.create(name, batch_size=4096) of fetch
+   (200 steps, profiled), hopper and walker2d (50 each), one launch per
+   step; the kernel timed per scene as in step 5 beside its bound; the
+   fused MLP kernels held and timed at the fetch recipe's shapes (101-wide
+   observation, a 20-wide policy head, 5120-row minibatches); PPO at
+   DEFAULT_PPO_PARAMS["fetch"] for 2 training steps and one evaluation of
+   128 envs, with exact launch counts (per training step 80 PBD, 464 fused
+   forward, 256 backward) and its env-steps/s;
 10. holds the generalized-step kernel (brax_torch/csrc/gen_step.cu, built
    for the v2 ant) against its plain version at 4096 envs from a state 10
    plain env steps after reset, at one frame and at ant's five, with the
@@ -155,9 +169,9 @@ from brax_torch.sim import kernels
 from brax_torch.tools import probe_overhead as probe
 from brax_torch.tools.pbd_parity import (MAX_OUTLIERS, PERTURBED_COPIES, ROUNDING_NOISE,
                                          RULES, STATES, TOLERANCE, capcap_share, capcap_state,
-                                         contact_share, fingertips_on_ball, force_scene_states,
-                                         grasp_states, hold_capcap, max_errors, one_pass,
-                                         twister_swimmer)
+                                         contact_share, corners_down, fetch_states,
+                                         fingertips_on_ball, force_scene_states, grasp_states,
+                                         hold_capcap, max_errors, one_pass, twister_swimmer)
 from brax_torch.training import fused_mlp
 from brax_torch.training.agents.ppo import networks as ppo_networks
 from brax_torch.training.agents.ppo import train as ppo
@@ -181,7 +195,9 @@ CHAINS = {"value": [87] + [256] * 5 + [1], "policy": [87] + [32] * 4 + [16],
           "value_halfcheetah": [18] + [256] * 5 + [1],
           "policy_halfcheetah": [18] + [32] * 4 + [12],
           "value_grasp": [132] + [256] * 5 + [1],
-          "policy_grasp": [132] + [32] * 4 + [78]}
+          "policy_grasp": [132] + [32] * 4 + [78],
+          "value_fetch": [101] + [256] * 5 + [1],
+          "policy_fetch": [101] + [32] * 4 + [20]}
 # (chain, rows) as the PPO paths launch them: minibatch [T=5, 1024] losses
 # (5120 rows), the rollout's policy at 2048 envs, the bootstrap value at 1024
 CHAIN_SHAPES = [(c + v, r) for v in ("", "_v2")
@@ -208,6 +224,13 @@ GRASP_PARITY_SHAPES = [(c + "_grasp", r) for c in ("value", "policy")
                        for r in (5120, 2048, 128)] + [("value_grasp", 256)]
 GRASP_TIMING_SHAPES = [("value_grasp", 5120), ("policy_grasp", 5120), ("policy_grasp", 2048),
                        ("value_grasp", 256)]
+# the fetch recipe's (batch 256 x unroll 20, as grasp's): minibatch losses at
+# 5120 rows, the rollout's policy at 2048 envs, the eval's at 128, the
+# bootstrap value at 256; timed at a training step's
+FETCH_PARITY_SHAPES = [(c + "_fetch", r) for c in ("value", "policy")
+                       for r in (5120, 2048, 128)] + [("value_fetch", 256)]
+FETCH_TIMING_SHAPES = [("value_fetch", 5120), ("policy_fetch", 5120), ("policy_fetch", 2048),
+                       ("value_fetch", 256)]
 # f32 mode: tests/test_fused_mlp.py's tolerances (|err| <= atol + rtol |plain|)
 F32_TOL = {"fwd": (2e-5, 2e-5), "bwd": (2e-4, 2e-5)}
 # bf16 mode: max |kernel - plain| <= BF16_REL * max |plain|, per output.  The
@@ -271,6 +294,12 @@ PPO_REACHER_STEPS = 2
 GRASP_ENV_STEPS = {"grasp": MAIN_STEPS, "acrobot": 50, "ur5e": 50}
 GRASP_OBS = {"grasp": 132, "acrobot": 4, "ur5e": 66}
 PPO_GRASP_STEPS = 2
+# v1 fetch (one-way box-plane contacts on the capsule-plane lanes, radius
+# 0), hopper and walker2d (one-way capsule-plane contacts): each env's
+# main-path steps and observation width
+FETCH_ENV_STEPS = {"fetch": MAIN_STEPS, "hopper": 50, "walker2d": 50}
+FETCH_OBS = {"fetch": 101, "hopper": 11, "walker2d": 17}
+PPO_FETCH_STEPS = 2
 # the PBD kernel's batch sizes: PPO's eval, PPO's training batch, env.step's
 PBD_TIMING_ENVS = (PPO_EVAL_ENVS, 2048, N_ENVS)
 PROFILE_EPISODE = 10
@@ -1438,6 +1467,135 @@ def grasp_paths(tag, phase, g_envs, checks, fused_plans, times, bounds):
             "twister": twister}
 
 
+def fetch_paths(tag, phase, b_envs, checks, fused_plans, times, bounds):
+    """The v1 fetch, hopper and walker2d phases (the PBD kernel's one-way
+    box-plane contacts: each box corner a capsule-plane lane of radius 0,
+    eight to a lower leg; hopper and walker2d on the capsule-plane code):
+    fetch's kernel against the twin at N_ENVS envs from a reset and with
+    its feet on the ground (pbd_parity.fetch_states), hopper's and
+    walker2d's from a reset and after 10 twin steps
+    (pbd_parity.force_scene_states), over one pass and over the whole
+    step, each by the rule pbd_parity.RULES names; the main paths
+    (env.step of fetch, profiled, hopper and walker2d, exact launch
+    counts); the kernel's timings and bound per scene; the fused MLP
+    kernels against their plain versions and timed at the fetch recipe's
+    shapes (added to `checks`, `fused_plans`, `times` and `bounds`); and
+    PPO at the fetch recipe for PPO_FETCH_STEPS training steps and one
+    evaluation, with exact launch counts."""
+    device = DEVICE
+    phase("v1 fetch, hopper, walker2d: pbd_step parity")
+    gen = torch.Generator(device=device).manual_seed(7)
+    b_scene = {}
+    for name, env_ in b_envs.items():
+        if name == "fetch":
+            states = fetch_states(env_.unwrapped, N_ENVS, 0, device)
+        else:
+            states = force_scene_states(name, env_, N_ENVS, 0, device)
+        checks_b = {}
+        for state, (qp, act) in states.items():
+            share = contact_share(env_.sys, qp, act)
+            legs = ""
+            if name == "fetch":
+                down = corners_down(env_.unwrapped, qp)
+                legs = (f", box corners below the ground per lower leg: "
+                        f"{torch.bincount(down.flatten(), minlength=9).tolist()} (0-8)")
+            print(f"parity state: {name}, {N_ENVS} envs, {state}, action {tuple(act.shape)}, "
+                  f"{share:.3f} in contact{legs}; one pass by {RULES[name][state][0]}, the "
+                  f"whole step by {RULES[name][state][1]}")
+            checks_b[state] = {**hold_capcap(name, state, env_.sys, qp, act, gen,
+                                             f"{name} {state} "), "contact_share": share}
+        b_scene[name] = {"sys": env_.sys, "qp": qp, "act": act, "checks": checks_b}
+
+    phase("v1 fetch, hopper, walker2d: main paths")
+    b_main = {}
+    for name, steps in FETCH_ENV_STEPS.items():
+        env_, state_, act_gen, b_main[name] = v1_main_path(
+            tag, name, steps, FETCH_OBS[name], warm=20 if steps == MAIN_STEPS else 10)
+        if name == "fetch":
+            state_, b_main[name]["profile"] = profile_env_step(tag, name, env_, state_, act_gen)
+
+    phase("v1 fetch, hopper, walker2d: pbd_step timings")
+    for name, r in b_scene.items():
+        sys_, qp, act = r["sys"], r["qp"], r["act"]
+        b = pbd_bound(sys_, qp, act)
+        r["bound"] = dict(zip(("bound_ms", "bound_by", "ops", "bytes"), b[:4]))
+        r["plain_ms"] = cuda_ms(lambda: kernels.pbd_step_plain(sys_, qp, act), reps=5, warmup=1)
+        r["ms_by_envs"] = pbd_timings(tag, sys_, qp, act, b[0] / N_ENVS, name)
+        print(f"bound {tag}: pbd_step {name} at {N_ENVS} envs: {b[3]} bytes -> {b[4]:.5f} ms at "
+              f"3.35 TB/s; {b[2]} fp32 ops (the twin's, counted) -> {b[5]:.5f} ms at 67 "
+              f"TFLOP/s; plain twin {r['plain_ms']:.3f} ms/step")
+
+    phase("v1 fetch: fused_mlp parity and timings")
+    for name, rows in FETCH_PARITY_SHAPES:
+        for mode in ("bf16", "f32"):
+            checks[name, rows, mode] = check_chain(name, rows, mode == "bf16")
+            for kind, r in checks[name, rows, mode].items():
+                print(f"parity fused_mlp_{kind} {name}@{rows} {mode}: max|kernel - plain| = "
+                      f"{r['max_abs_err']:.3e}, mean|err|/mean|plain| up to "
+                      f"{r['max_mean_rel_err']:.3e}, {r['fraction_of_tolerance']:.3f} of the "
+                      f"tolerance")
+        for kind in ("fwd", "bwd"):
+            fused_plans[kind, name, rows] = {k: v for k, v in fused_mlp.card_plan(
+                tuple(CHAINS[name]), rows, device, kind == "bwd").items() if k != "scratch"}
+    for name, rows in FETCH_TIMING_SHAPES:
+        times[name, rows, "bf16"] = t = time_chain(name, rows, True)
+        for kind in ("fwd", "bwd"):
+            bounds[kind, name, rows, "bf16"] = b = chain_bound(CHAINS[name], rows, True,
+                                                               kind == "bwd")
+            print(f"timing {tag}: fused_mlp_{kind} {name}@{rows} bf16: kernel {t[kind]:.4f} ms "
+                  f"graph-replayed ({t[kind + '_host']:.4f} host-issued), plain "
+                  f"{t['plain_' + kind]:.4f} ms, F.linear chain (cuBLAS) "
+                  f"{t['cublas_' + kind]:.4f} ms graph-replayed; bound {b[0]:.5f} ms by {b[1]}")
+
+    phase("v1 fetch: PPO")
+    p_f = recipe("fetch")
+    rollout_f, sgd_f, _ = launch_plan(p_f)
+    per_step_f = {"pbd_step": rollout_f * p_f["action_repeat"],
+                  "fused_mlp_fwd": rollout_f + 3 * sgd_f, "fused_mlp_bwd": 2 * sgd_f}
+    if per_step_f != {"pbd_step": 80, "fused_mlp_fwd": 464, "fused_mlp_bwd": 256}:
+        raise AssertionError(f"fetch recipe launches per training step {per_step_f}")
+    if env_steps_per_training_step(p_f) != 163_840:
+        raise AssertionError(f"fetch recipe env steps per training step "
+                             f"{env_steps_per_training_step(p_f)}")
+    want_f = dict(zip(("fused_mlp_fwd", "fused_mlp_bwd", "pbd_step"),
+                      expected_launches(p_f, PPO_FETCH_STEPS)))
+    recorder = InitRecorder()
+    kernels.pbd_step_launch.launches = 0
+    fused_mlp.chain_fwd.launches = fused_mlp.chain_bwd.launches = 0
+    t0 = time.perf_counter()
+    _, (_, policy_params), f_ppo = run_ppo(True, PPO_FETCH_STEPS, environment="fetch",
+                                           preset="fetch", network_factory=recorder.factory)
+    torch.cuda.synchronize()
+    f_ppo_s = time.perf_counter() - t0
+    f_launches = {"fused_mlp_fwd": fused_mlp.chain_fwd.launches,
+                  "fused_mlp_bwd": fused_mlp.chain_bwd.launches,
+                  "pbd_step": kernels.pbd_step_launch.launches}
+    moved = check_ppo_run("PPO fetch", f_ppo, recorder, policy_params, f_launches, want_f)
+    widths = (recorder.initial["policy"]["hidden_0.kernel"].shape[0],
+              recorder.initial["policy"]["hidden_4.kernel"].shape[1])
+    if widths != (FETCH_OBS["fetch"], 20):
+        raise AssertionError(f"the fetch policy maps {widths[0]} inputs to {widths[1]}")
+    f_fused_ms = {
+        "fwd": rollout_f * times["policy_fetch", 2048, "bf16"]["fwd"] + sgd_f * sum(
+            times[c + "_fetch", r, "bf16"]["fwd"]
+            for c, r in (("policy", 5120), ("value", 5120), ("value", 256))),
+        "bwd": sgd_f * sum(times[c + "_fetch", 5120, "bf16"]["bwd"] for c in ("policy", "value")),
+    }
+    print(f"main path PPO fetch: {PPO_FETCH_STEPS} training steps at the fetch recipe (num_envs "
+          f"{p_f['num_envs']}, batch {p_f['batch_size']} x {p_f['num_minibatches']} minibatches, "
+          f"unroll {p_f['unroll_length']}, {p_f['num_updates_per_batch']} updates) + one eval "
+          f"of {PPO_EVAL_ENVS} envs in {f_ppo_s:.1f} s; launches {f_launches} (as expected; per "
+          f"training step {per_step_f}); total_loss {f_ppo['training/total_loss']:.5g}, "
+          f"eval/episode_reward {f_ppo['eval/episode_reward']:.5g}; every parameter moved "
+          f"(smallest max change {moved:.3e})")
+    print(f"timing {tag}: PPO fetch training env-steps/s over step 2 (host clock, fused_mlp on): "
+          f"{f_ppo['training/sps_after_first']:.1f}; fused device ms per training step "
+          f"(graph-replayed times x launches): fwd {f_fused_ms['fwd']:.3f}, bwd "
+          f"{f_fused_ms['bwd']:.3f}")
+    return {"scene": b_scene, "main": b_main, "launches": f_launches, "ppo": f_ppo,
+            "per_step": per_step_f, "fused_ms": f_fused_ms, "seconds": f_ppo_s}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -1463,6 +1621,8 @@ def main():
               for name in FORCE_SCENES}
     g_envs = {name: envs.create(name, episode_length=1000, batch_size=N_ENVS)
               for name in GRASP_ENV_STEPS}
+    b_envs = {name: envs.create(name, episode_length=1000, batch_size=N_ENVS)
+              for name in FETCH_ENV_STEPS}
     built = cuda_build.build(kernels.kernel_source(sys_), fused_mlp.SOURCE, probe.SOURCE,
                              *(kernels.kernel_source(e.sys) for e in h_envs.values()),
                              *(kernels.kernel_source(e.sys) for e in c_envs.values()),
@@ -1470,12 +1630,15 @@ def main():
                              *(kernels.kernel_source(e.sys) for e in f_envs.values()),
                              *(kernels.kernel_source(e.sys) for e in g_envs.values()),
                              kernels.kernel_source(one_pass(g_envs["grasp"].sys)),
+                             *(kernels.kernel_source(e.sys) for e in b_envs.values()),
+                             *(kernels.kernel_source(one_pass(e.sys)) for e in b_envs.values()),
                              kernels.kernel_source(twister_swimmer(device)),
                              *(gen_kernels.kernel_source(s) for s in scenes))
     print(f"build: {', '.join(p.name for p in built.values())} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a, in parallel)")
     print(kernels.ptxas_report(sys_).strip())
-    for e in (*h_envs.values(), *c_envs.values(), *f_envs.values(), *g_envs.values()):
+    for e in (*h_envs.values(), *c_envs.values(), *f_envs.values(), *g_envs.values(),
+              *b_envs.values()):
         print(kernels.ptxas_report(e.sys).strip())
     print(fused_mlp.ptxas_report().strip())
     print(probe.ptxas_report().strip())
@@ -1490,6 +1653,8 @@ def main():
                 for name, e in f_envs.items()}
     g_launch = {name: pbd_launch_report(e.sys, PBD_TIMING_ENVS, name)
                 for name, e in g_envs.items()}
+    b_launch = {name: pbd_launch_report(e.sys, PBD_TIMING_ENVS, name)
+                for name, e in b_envs.items()}
     hgmma = cuda_build.sass_count(built[probe.SOURCE], "HGMMA")
     print(f"probe dot_chain build: {hgmma} HGMMA (wgmma) instructions in "
           f"{built[probe.SOURCE].name} (cuobjdump --dump-sass)")
@@ -1633,6 +1798,8 @@ def main():
     f_scene, f_main, f_launches = f["scene"], f["main"], f["launches"]
     g = grasp_paths(tag, phase, g_envs, checks, fused_plans, times, bounds)
     g_scene, g_main, g_launches = g["scene"], g["main"], g["launches"]
+    fe = fetch_paths(tag, phase, b_envs, checks, fused_plans, times, bounds)
+    b_scene, b_main, b_launches = fe["scene"], fe["main"], fe["launches"]
 
     def fused_entry(kind, replaces, function):
         main = ("value", 5120, "bf16")
@@ -1649,6 +1816,7 @@ def main():
                                  "PPO humanoid": h_launches[f"fused_mlp_{kind}"],
                                  "PPO v1 halfcheetah": c_launches[f"fused_mlp_{kind}"],
                                  "PPO grasp": g_launches[f"fused_mlp_{kind}"],
+                                 "PPO fetch": b_launches[f"fused_mlp_{kind}"],
                                  "probe": probe_launches.get(f"fused_mlp_{kind}", 0)},
             "launches_per_training_step": per_step_launches[kind],
             "max_abs_err": max(c[kind]["max_abs_err"] for k, c in checks.items()
@@ -1658,7 +1826,7 @@ def main():
             "tolerance": {"bf16_rel_to_max": BF16_REL, "f32_rtol_atol": F32_TOL[kind]},
             "shape": "value chain 87-256x5-1 at 5120 rows, bf16; by_shape has every "
                      "chain of the PPO paths (87-wide v1 ant, 27-wide v2 ant, 240-wide "
-                     "humanoid, 18-wide v1 halfcheetah, 132-wide grasp)",
+                     "humanoid, 18-wide v1 halfcheetah, 132-wide grasp, 101-wide fetch)",
             "ms": times[main][kind],
             "ms_host_issued": times[main][kind + "_host"],
             "ms_clock": f"replayed from a CUDA graph of {GRAPH_CALLS} calls; ms_host_issued: "
@@ -1674,6 +1842,7 @@ def main():
             "ms_per_training_step_humanoid": h_fused_ms[kind],
             "ms_per_training_step_halfcheetah": c["fused_ms"][kind],
             "ms_per_training_step_grasp": g["fused_ms"][kind],
+            "ms_per_training_step_fetch": fe["fused_ms"][kind],
             "launch": fused_plans[kind, "value", 5120],
             "by_shape": [
                 {"chain": c, "rows": r, "mode": m, "ms": times[c, r, m][kind],
@@ -1924,6 +2093,11 @@ def main():
                   "total_loss": g["ppo"]["training/total_loss"], "launches": g_launches,
                   "launches_per_training_step": g["per_step"], "seconds": g["seconds"],
                   "fused_ms_per_training_step": g["fused_ms"]},
+        "fetch": {"env_steps_per_s_fused_on": fe["ppo"]["training/sps_after_first"],
+                  "eval_episode_reward": fe["ppo"]["eval/episode_reward"],
+                  "total_loss": fe["ppo"]["training/total_loss"], "launches": b_launches,
+                  "launches_per_training_step": fe["per_step"], "seconds": fe["seconds"],
+                  "fused_ms_per_training_step": fe["fused_ms"]},
         "card": name_limit}}))
     print(json.dumps({"kernels": [{
         "name": "pbd_step",
@@ -1934,11 +2108,12 @@ def main():
         "launches": launches,
         "max_abs_err": max([*errs.values()] + [
             e for r in (*h_scene.values(), *c_scene.values(), *f_scene.values(),
-                        *g_scene.values())
+                        *g_scene.values(), *b_scene.values())
             for ck in r["checks"].values()
             if ck.get("rule", "max_errors") == "max_errors"
             for e in ck["max_abs_err_by_field"].values()] + [
-            e for r in (*c_scene.values(), g_scene["grasp"]) for ck in r["checks"].values()
+            e for r in (*c_scene.values(), g_scene["grasp"], *b_scene.values())
+            for ck in r["checks"].values()
             if ck["one_pass"]["rule"] == "max_errors"
             for e in ck["one_pass"]["max_abs_err_by_field"].values()] + [
             *g["twister"]["max_abs_err_by_field"].values()]),
@@ -1972,7 +2147,9 @@ def main():
                              **{f"{name} env.step": r["launches"] for name, r in f_main.items()},
                              "PPO reacher": f_launches["pbd_step"],
                              **{f"{name} env.step": r["launches"] for name, r in g_main.items()},
-                             "PPO grasp": g_launches["pbd_step"]},
+                             "PPO grasp": g_launches["pbd_step"],
+                             **{f"{name} env.step": r["launches"] for name, r in b_main.items()},
+                             "PPO fetch": b_launches["pbd_step"]},
         "by_scene": {
             "ant": {"ms": kernel_ms, "ms_host_issued": pbd_by_envs[N_ENVS]["host"],
                     "ms_by_envs": pbd_by_envs, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2008,6 +2185,13 @@ def main():
                       "main_path": g_main[name],
                       "launches_ppo": g_launches["pbd_step"] if name == "grasp" else None}
                for name, r in g_scene.items()},
+            **{name: {"ms": r["ms_by_envs"][N_ENVS]["graph"],
+                      "ms_host_issued": r["ms_by_envs"][N_ENVS]["host"],
+                      "ms_by_envs": r["ms_by_envs"], "plain_ms": r["plain_ms"], **r["bound"],
+                      "checks": r["checks"], "launch": b_launch[name],
+                      "main_path": b_main[name],
+                      "launches_ppo": b_launches["pbd_step"] if name == "fetch" else None}
+               for name, r in b_scene.items()},
             "swimmer_twister": {"checks": {STATES[1]: g["twister"]}},
         },
         "card": name_limit,

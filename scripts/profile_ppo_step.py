@@ -1,7 +1,7 @@
 """Profiles one PPO training step of a v1 env at its published recipe, on
 the card.
 
-    python scripts/profile_ppo_step.py reacher    # or grasp
+    python scripts/profile_ppo_step.py reacher    # or grasp, fetch
 
 Runs chip_smoke.py's `profile_training_step` (two training steps at
 DEFAULT_PPO_PARAMS[name], the fused MLP kernels on, the episode cut to
@@ -11,8 +11,8 @@ kernels and host ops, beside the card's name and power limit.
 chip_smoke.py profiles ant's training step itself; reacher's step makes
 ~137k device ops (800 PBD launches, four physics steps to an env step),
 whose trace the profiler takes minutes to process, so it runs here, apart
-from chip_smoke.py's time limit, as does grasp's (80 PBD launches, 64
-minibatch steps).
+from chip_smoke.py's time limit, as do grasp's (80 PBD launches, 64
+minibatch steps) and fetch's (80 PBD launches, 128 minibatch steps).
 """
 
 import os

@@ -1,7 +1,7 @@
 """Planted faults in the PBD kernel's capsule-capsule (two-way and
 one-way), thruster/twister and angle-actuator (revolute and spherical)
-sections, and what the parity rules (`brax_torch.tools.pbd_parity`) read
-on them.
+sections and in its box-corner lanes (capsule-plane lanes of radius 0),
+and what the parity rules (`brax_torch.tools.pbd_parity`) read on them.
 
 Each fault is one textual change to `brax_torch/csrc/pbd_step.cu`'s
 PBD_CAPCAP, PBD_CAPCAP_ONEWAY, PBD_FORCES, PBD_ANGLE or spherical actuator
@@ -33,7 +33,16 @@ code, made in a copy under the build directory:
 - `spherical_angle_sign`: an angle actuator on a spherical joint pushes
   with a torque actuator's sign;
 - `padded_reads_column_0`: a padded dof of a spherical joint's actuator
-  (no action column) reads column 0 instead of acting as 0.
+  (no action column) reads column 0 instead of acting as 0;
+- `corner_radius`: a box corner's record (radius 0) is read with a
+  capsule's radius, 0.05;
+- `average_by_kg`: a body's position update is averaged over all PBD_KG
+  contacts it gathers (fetch's lower legs: 8), not over those whose update
+  is non-zero;
+- `first_corner_only`: each body gathers only the first contact of its
+  list (a lower leg its box's first corner);
+- `box_two_way_sinking`: a box corner's lane restitutes by the two-way
+  branch's test, v_n_old <= 0, not v_n_old <= -vel_threshold.
 
 `b_mass` and `no_friction` are planted in halfcheetah only: pusher's
 capsule-capsule pairs have masses and inverse inertias of 1 on both sides
@@ -46,7 +55,8 @@ System with its capsule-capsule pairs made one-way, friction 0);
 column taken from every actuator but the first) and `twister_sign` in
 `swimmer_twister` (swimmer with its torso's thruster made a twister):
 Systems made for them (`pbd_parity.padded_grasp`, `oneway_pusher`,
-`twister_swimmer`), as no default scene has what they change.
+`twister_swimmer`), as no default scene has what they change.  The box
+faults are planted in fetch, from its states (`pbd_parity.fetch_states`).
 
 On the card,
 
@@ -54,11 +64,12 @@ On the card,
 
 holds this package's kernel and each planted one against the twin at
 4096 envs of each scene (default: v1 halfcheetah, pusher,
-inverted_pendulum, inverted_double_pendulum, swimmer, reacherangle, grasp
-and the made scenes grasp_padded, pusher_oneway and swimmer_twister),
+inverted_pendulum, inverted_double_pendulum, swimmer, reacherangle, grasp,
+fetch and the made scenes grasp_padded, pusher_oneway and swimmer_twister),
 from the states `chip_smoke.py` holds them in (a reset, 10 twin steps
 after it and, for the capsule-capsule scenes, the pairs overlapping;
-grasp's reset and its claw closed on the ball; its seeds), over one pass
+grasp's reset and its claw closed on the ball; fetch's reset and its feet
+on the ground; its seeds), over one pass
 and over the whole step, by the rounding rule and, for halfcheetah's and
 pusher's pairs (two-way, and made one-way), the chaos rule.  It prints per scene,
 state and kernel the outlier count of the rounding rule (with
@@ -115,6 +126,14 @@ FAULTS = {
     "padded_reads_column_0": (
         "ac.act[d] = (i < PBD_NA && col >= 0) ? in_act[e * n_act + col] : 0.0f;",
         "ac.act[d] = i < PBD_NA ? in_act[e * n_act + (col >= 0 ? col : 0)] : 0.0f;"),
+    "corner_radius": ("cc.radius = contact_f(3, i);",
+                      "cc.radius = contact_f(3, i) == 0.0f ? 0.05f : contact_f(3, i);"),
+    "average_by_kg": ("float denom = 1e-6f + count;\n    dp = dp + acc_pos / denom;",
+                      "float denom = 1e-6f + PBD_KG;\n    dp = dp + acc_pos / denom;"),
+    "first_corner_only": ("l.con[g][k] = __ldg(&BODY_CON[g][k][i]);",
+                          "l.con[g][k] = k == 0 ? __ldg(&BODY_CON[g][k][i]) : -1;"),
+    "box_two_way_sinking": ("float sinking = v_n_old <= -vel_threshold ? 1.0f : 0.0f;",
+                            "float sinking = v_n_old <= 0.0f ? 1.0f : 0.0f;"),
 }
 # the scenes a fault changes anything in
 FAULT_SCENES = {"b_sign": ("halfcheetah", "pusher"), "no_b_gather": ("halfcheetah", "pusher"),
@@ -126,7 +145,9 @@ FAULT_SCENES = {"b_sign": ("halfcheetah", "pusher"), "no_b_gather": ("halfcheeta
                 "angle_degrees": ("reacherangle",), "angle_sign": ("reacherangle",),
                 "twister_sign": ("swimmer_twister",), "oneway_pushes_b": ("grasp",),
                 "oneway_static_friction": ("pusher_oneway",),
-                "spherical_angle_sign": ("grasp",), "padded_reads_column_0": ("grasp_padded",)}
+                "spherical_angle_sign": ("grasp",), "padded_reads_column_0": ("grasp_padded",),
+                "corner_radius": ("fetch",), "average_by_kg": ("fetch",),
+                "first_corner_only": ("fetch",), "box_two_way_sinking": ("fetch",)}
 CAPCAP_SCENES = ("halfcheetah", "pusher")
 FORCE_SCENES = ("inverted_pendulum", "inverted_double_pendulum", "swimmer", "reacherangle")
 GRASP_SCENES = ("grasp", "grasp_padded")
@@ -135,7 +156,7 @@ GRASP_SCENES = ("grasp", "grasp_padded")
 MADE_SCENES = {"grasp_padded": ("grasp", pp.padded_grasp),
                "pusher_oneway": ("pusher", pp.oneway_pusher),
                "swimmer_twister": ("swimmer", lambda s: pp.twister_swimmer(s.mass.device))}
-SCENES = CAPCAP_SCENES + FORCE_SCENES + ("grasp",) + tuple(MADE_SCENES)
+SCENES = CAPCAP_SCENES + FORCE_SCENES + ("grasp", "fetch") + tuple(MADE_SCENES)
 N = 4096
 
 
@@ -185,12 +206,15 @@ def states(name, env, device, sys_=None):
     """chip_smoke.py's states of `name` at N envs, with its seeds: a
     capsule-capsule scene's three, a thruster or angle-actuator scene's two
     (`pbd_parity.force_scene_states`), grasp's two
-    (`pbd_parity.grasp_states`); `env` is the registered scene's (for a
+    (`pbd_parity.grasp_states`), fetch's two (`pbd_parity.fetch_states`);
+    `env` is the registered scene's (for a
     made scene, the one it is made from), whose twin steps run on `sys_`
     (default: env.sys)."""
     base = MADE_SCENES[name][0] if name in MADE_SCENES else name
     if base == "grasp":
         return pp.grasp_states(env.unwrapped, N, 0, device)
+    if base == "fetch":
+        return pp.fetch_states(env.unwrapped, N, 0, device)
     if base in FORCE_SCENES:
         return pp.force_scene_states(base, env, N, 0, device, sys_)
     sys_ = sys_ or env.sys

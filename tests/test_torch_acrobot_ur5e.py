@@ -91,8 +91,9 @@ def test_env_matches_jax(name):
 
 def test_create_registers_the_envs():
     """envs.create builds grasp, acrobot and ur5e on the CPU at their batch
-    and their widths; the CPU step runs the twin and launches nothing; the
-    legacy-spring variants raise, naming their queue."""
+    and their widths; the CPU step runs the twin and launches nothing; with
+    legacy_spring set each builds the same System and steps the same bits,
+    as the JAX envs ignore the flag (none has a spring config)."""
     for name in gp.NAMES:
         env = envs.create(name, batch_size=2, episode_length=4, device="cpu")
         assert env.observation_size == gp.OBS[name] and env.action_size == gp.ACTION[name]
@@ -101,5 +102,9 @@ def test_create_registers_the_envs():
         state = env.step(state, torch.zeros((2, gp.ACTION[name])))
         assert kernels.pbd_step_launch.launches == before
         assert state.obs.shape == (2, gp.OBS[name]) and bool(torch.isfinite(state.obs).all())
-        with pytest.raises(NotImplementedError, match="queue A item 6"):
-            envs.create(name, batch_size=2, device="cpu", legacy_spring=True)
+        spring = envs.create(name, batch_size=2, episode_length=4, device="cpu",
+                             legacy_spring=True)
+        _assert_tables_equal(flatten(spring.sys), flatten(env.sys))
+        again = spring.step(spring.reset(torch.Generator().manual_seed(0)),
+                            torch.zeros((2, gp.ACTION[name])))
+        assert torch.equal(again.obs, state.obs) and torch.equal(again.reward, state.reward)

@@ -490,14 +490,19 @@ def test_grasp_acrobot_ur5e_env_step_launches_the_kernel_once(cuda):
 
 
 def test_kernel_raises_on_box_plane(cuda):
-    """A System with a contact group the kernel lacks (fetch's one-way
-    BoxPlane) raises NotImplementedError on CUDA tensors, and launches
-    nothing."""
-    env, qp, act = _contact_state(cuda, n=32, steps=0)
-    box_plane = type("BoxPlane", (), {"com": env.sys.contact_groups[0].com})()
-    other = dataclasses.replace(env.sys, contact_groups=env.sys.contact_groups + (box_plane,))
+    """A System with a contact group the kernel lacks (fetch's box-plane
+    group made two-way, which the JAX package's kernel refuses too) raises
+    NotImplementedError on CUDA tensors, and launches nothing."""
+    from brax_torch.envs.fetch import Fetch
+    from brax_torch.tools.pbd_parity import fetch_states
+
+    env = Fetch(batch_size=32, device=cuda)
+    qp, act = fetch_states(env, 32, 0, cuda)["reset"]
+    (g,) = env.sys.contact_groups
+    two_way = dataclasses.replace(g, com=dataclasses.replace(g.com, one_way=False))
+    other = dataclasses.replace(env.sys, contact_groups=(two_way,))
     before = kernels.pbd_step_launch.launches
-    with pytest.raises(NotImplementedError, match="BoxPlane contacts"):
+    with pytest.raises(NotImplementedError, match="two-way BoxPlane contacts"):
         kernels.pbd_step(other, qp, act)
     assert kernels.pbd_step_launch.launches == before
 
@@ -517,6 +522,102 @@ def test_earlier_scenes_compile_as_without_the_grasp_sections(cuda, name):
                                                        "PBD_SPHERICAL_ANGLE")))
     assert "#ifdef PBD_CAPCAP_ONEWAY" in whole.read_text()
     assert "#ifdef PBD_SPHERICAL_ANGLE" not in cut.read_text()
+    assert _sass(whole) == _sass(cut) != []
+
+
+# ---------------------------------------------------------------------------
+# fetch: one-way box-plane contacts (each corner a capsule-plane lane of
+# radius 0); hopper and walker2d
+# ---------------------------------------------------------------------------
+
+
+def _box_scene_states(name, device, n):
+    """(env, {state: (qp, act)}) of fetch (pbd_parity.fetch_states), or of
+    hopper or walker2d (a reset and 10 twin steps after it)."""
+    from brax_torch import envs
+    from brax_torch.tools import pbd_parity
+
+    env = envs.create(name, episode_length=1000, batch_size=n, device=device)
+    if name == "fetch":
+        return env, pbd_parity.fetch_states(env.unwrapped, n, 0, device)
+    return env, pbd_parity.force_scene_states(name, env, n, 0, device)
+
+
+@pytest.mark.parametrize("n", [128, 2048, 4096])
+def test_fetch_kernel_matches_twin_by_batch(cuda, n):
+    """fetch from a reset and with its feet on the ground, over one pass
+    and over the whole step, by the rules chip_smoke.py holds it to
+    (pbd_parity.RULES): 32 lanes, one env a warp, PBD_KG 8."""
+    from brax_torch.tools import pbd_parity
+
+    env, states = _box_scene_states("fetch", cuda, n)
+    p = kernels.plan(env.sys)
+    assert (p.lanes, p.widths[3], p.nc) == (32, 8, 32)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for state, (qp, act) in states.items():
+        before = kernels.pbd_step_launch.launches
+        pbd_parity.hold_capcap("fetch", state, env.sys, qp, act, gen, f"fetch {state} ")
+        assert kernels.pbd_step_launch.launches == before + 2
+
+
+@pytest.mark.parametrize("name", ["hopper", "walker2d"])
+@pytest.mark.parametrize("n", [1, 4097])
+def test_hopper_walker2d_kernel_matches_twin_by_batch(cuda, name, n):
+    from brax_torch.tools import pbd_parity
+
+    env, states = _box_scene_states(name, cuda, n)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for state, (qp, act) in states.items():
+        pbd_parity.hold_capcap(name, state, env.sys, qp, act, gen, f"{name} {state} ")
+
+
+def test_fetch_kernel_gives_the_same_bits_twice_and_from_a_graph(cuda):
+    env, states = _box_scene_states("fetch", cuda, 1024)
+    qp, act = states["feet on the ground"]
+    want, info_want = kernels.pbd_step(env.sys, qp, act)
+    again, info_again = kernels.pbd_step(env.sys, qp, act)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernels.pbd_step(env.sys, qp, act)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, info_got = kernels.pbd_step(env.sys, qp, act)
+    got.vel.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    fields = lambda q, i: (q.pos, q.rot, q.vel, q.ang, i.contact.vel, i.contact.ang)
+    for x, y, z in zip(fields(want, info_want), fields(again, info_again),
+                       fields(got, info_got)):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+def test_fetch_hopper_walker2d_env_step_launches_the_kernel_once(cuda):
+    from brax_torch import envs
+
+    for name, obs, n_act in (("fetch", 101, 10), ("hopper", 11, 3), ("walker2d", 17, 6)):
+        env = envs.create(name, batch_size=64)
+        state = env.reset(torch.Generator(device=cuda).manual_seed(0))
+        before = kernels.pbd_step_launch.launches
+        for _ in range(3):
+            state = env.step(state, torch.rand((64, n_act), device=cuda) * 2 - 1)
+        assert kernels.pbd_step_launch.launches == before + 3
+        assert state.obs.shape == (64, obs) and bool(torch.isfinite(state.obs).all())
+
+
+@pytest.mark.parametrize("name", ["fetch", "hopper", "walker2d"])
+def test_box_plane_and_walker_scenes_compile_no_section(cuda, name):
+    """fetch's, hopper's and walker2d's kernels compile none of the
+    optional sections: their SASS equals that of a build whose source has
+    every PBD_SPHERICAL, PBD_CAPCAP, PBD_FORCES and PBD_ANGLE block cut out,
+    as ant's does."""
+    env, _ = _box_scene_states(name, cuda, 1)
+    whole = kernels.kernel_source(env.sys)
+    cut = whole.with_name(whole.stem + "_without_sections.cu")
+    cut.write_text(_without_blocks(whole.read_text(), ("PBD_SPHERICAL", "PBD_CAPCAP",
+                                                       "PBD_FORCES", "PBD_ANGLE")))
+    assert "#ifdef PBD_CAPCAP" not in cut.read_text()
     assert _sass(whole) == _sass(cut) != []
 
 

@@ -35,8 +35,10 @@ def test_create_builds_the_wrapper_stack():
 
 
 def test_create_names_envs_not_ported():
+    """Every env of the JAX registry is ported; a config that is not (ant's
+    legacy spring) raises, naming its queue."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        envs.create("fetch", device="cpu")
+        envs.create("ant", device="cpu", legacy_spring=True)
 
 
 def test_reset_draws_its_noise_from_the_generator():
@@ -106,7 +108,9 @@ def test_port_imports_no_jax():
                    "envs/inverted_double_pendulum.py", "envs/swimmer.py", "envs/reacher.py",
                    "envs/reacherangle.py", "envs/assets/inverted_pendulum.py",
                    "envs/assets/inverted_double_pendulum.py", "envs/assets/swimmer.py",
-                   "envs/assets/reacher.py", "envs/assets/reacherangle.py"):
+                   "envs/assets/reacher.py", "envs/assets/reacherangle.py", "envs/fetch.py",
+                   "envs/hopper.py", "envs/walker2d.py", "envs/assets/fetch.py",
+                   "envs/assets/hopper.py", "envs/assets/walker2d.py"):
         assert REPO / "brax_torch" / module in files, module
     bad = [
         (str(f.relative_to(REPO)), name)
@@ -126,7 +130,8 @@ def test_importing_the_port_loads_no_brax_tpu():
         "brax_torch.envs.halfcheetah, brax_torch.envs.pusher, brax_torch.sim.geometry, "
         "brax_torch.tools.pbd_parity, brax_torch.tools.pbd_turns, "
         "brax_torch.envs.inverted_pendulum, brax_torch.envs.inverted_double_pendulum, "
-        "brax_torch.envs.swimmer, brax_torch.envs.reacher, brax_torch.envs.reacherangle; "
+        "brax_torch.envs.swimmer, brax_torch.envs.reacher, brax_torch.envs.reacherangle, "
+        "brax_torch.envs.fetch, brax_torch.envs.hopper, brax_torch.envs.walker2d; "
         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('brax_tpu', 'flax', 'optax')))"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -400,7 +400,9 @@ def test_unsupported_features_unchanged(change, want):
     and reacherangle's Systems miss nothing), and up to 64 action columns
     (grasp's 39); a spring kind, a System that mixes revolute and
     spherical groups (which `builder.build` never makes), a two-way
-    capsule-plane group and a box-plane one are not."""
+    capsule-plane group and a group of a class the kernel does not know (a
+    stand-in named BoxPlane; the real one-way BoxPlane is covered, fetch's,
+    tests/test_torch_fetch_kernel.py) are not."""
     change = dict(change)
     sys = _system(change.pop("scene", "ant"))
     n_act = change.pop("n_act", 0)
