@@ -10,9 +10,12 @@ reacherangle (angle actuators), reacher, grasp (angle actuators on
 spherical joints, one-way capsule-capsule contacts against its frozen
 palm), acrobot, ur5e, fetch (one-way box-plane contacts of its lower legs)
 and the trainer test env fast.  `register` adds a factory under a name and
-`create_fn` binds `create`'s arguments, as in the JAX registry.  What is
-not ported (the legacy_spring configs, queue A item 6 in ROADMAP.md)
-raises NotImplementedError.
+`create_fn` binds `create`'s arguments, as in the JAX registry.
+`legacy_spring=True` switches ant, halfcheetah, humanoid_legacy,
+humanoidstandup, inverted_pendulum, inverted_double_pendulum, reacher and
+reacherangle to their legacy-spring scenes, as their JAX counterparts do;
+the other envs take it and ignore it (humanoid, the fork's humanoid_new,
+too).
 """
 
 from __future__ import annotations

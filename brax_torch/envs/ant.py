@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from brax_torch.envs import base
-from brax_torch.envs.assets.ant import ant_config
+from brax_torch.envs.assets.ant import ant_config, ant_config_spring
 from brax_torch.sim.types import QP, Info, Tensor
 
 
@@ -30,11 +30,8 @@ class Ant(base.Env):
         batch_size=1,
         device="cuda",
     ):
-        if legacy_spring:
-            raise NotImplementedError(
-                "legacy_spring ant is not ported yet (see ROADMAP.md, queue B item 1)"
-            )
-        super().__init__(config=ant_config(), batch_size=batch_size, device=device)
+        config = ant_config_spring() if legacy_spring else ant_config()
+        super().__init__(config=config, batch_size=batch_size, device=device)
         self._ctrl_cost_weight = ctrl_cost_weight
         self._use_contact_forces = use_contact_forces
         self._contact_cost_weight = contact_cost_weight

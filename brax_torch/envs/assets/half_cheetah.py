@@ -1,8 +1,7 @@
 """Scene configs for halfcheetah, as data.
 
 A copy of `brax_tpu/envs/assets/half_cheetah.py`: `halfcheetah_config`
-(PBD) and `halfcheetah_config_spring` (legacy spring, which
-`brax_torch.sim.builder.build` does not build yet), kept here so that the
+(PBD) and `halfcheetah_config_spring` (legacy spring), kept here so that the
 port imports nothing of `brax_tpu`.
 """
 

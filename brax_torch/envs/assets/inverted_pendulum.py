@@ -1,8 +1,7 @@
 """Scene configs for inverted_pendulum, as data.
 
 A copy of `brax_tpu/envs/assets/inverted_pendulum.py`: `inverted_pendulum_config`
-(PBD) and `inverted_pendulum_config_spring` (legacy spring, which
-`brax_torch.sim.builder.build` does not build yet), kept here so that the
+(PBD) and `inverted_pendulum_config_spring` (legacy spring), kept here so that the
 port imports nothing of `brax_tpu`.
 """
 

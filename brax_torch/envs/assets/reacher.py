@@ -1,8 +1,7 @@
 """Scene configs for reacher, as data.
 
 A copy of `brax_tpu/envs/assets/reacher.py`: `reacher_config`
-(PBD) and `reacher_config_spring` (legacy spring, which
-`brax_torch.sim.builder.build` does not build yet), kept here so that the
+(PBD) and `reacher_config_spring` (legacy spring), kept here so that the
 port imports nothing of `brax_tpu`.
 """
 

@@ -1,8 +1,7 @@
 """Scene configs for reacherangle, as data.
 
 A copy of `brax_tpu/envs/assets/reacherangle.py`: `reacherangle_config`
-(PBD) and `reacherangle_config_spring` (legacy spring, which
-`brax_torch.sim.builder.build` does not build yet), kept here so that the
+(PBD) and `reacherangle_config_spring` (legacy spring), kept here so that the
 port imports nothing of `brax_tpu`.
 """
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from brax_torch.envs import base
-from brax_torch.envs.assets.half_cheetah import halfcheetah_config
+from brax_torch.envs.assets.half_cheetah import halfcheetah_config, halfcheetah_config_spring
 from brax_torch.sim.types import QP, Tensor
 
 _METRICS = ("x_position", "x_velocity", "reward_ctrl", "reward_run")
@@ -33,10 +33,8 @@ class Halfcheetah(base.Env):
         batch_size=1,
         device="cuda",
     ):
-        if legacy_spring:
-            raise NotImplementedError(
-                "legacy_spring halfcheetah is not ported yet (see ROADMAP.md, queue B item 1)")
-        super().__init__(config=halfcheetah_config(), batch_size=batch_size, device=device)
+        config = halfcheetah_config_spring() if legacy_spring else halfcheetah_config()
+        super().__init__(config=config, batch_size=batch_size, device=device)
         self._forward_reward_weight = forward_reward_weight
         self._ctrl_cost_weight = ctrl_cost_weight
         self._reset_noise_scale = reset_noise_scale

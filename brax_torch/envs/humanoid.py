@@ -12,7 +12,10 @@ joint dofs, the CoM-frame inertia (99) and velocity (66) blocks of the 11
 bodies before the floor, and the actuator torques (30: 10 actuators x 3
 dofs).  That last block gathers the action as the JAX env does, with
 `jnp.take(..., mode="clip")`, so a padded dof's -1 index reads column 0;
-the port keeps that, unmasked.
+the port keeps that, unmasked.  With legacy_spring=True, HumanoidLegacy
+(and HumanoidStandup) step the legacy-spring scene, whose joints are not
+padded: the torque block has the 17 dofs' columns, and the observation
+is 227 wide; Humanoid ignores the flag, as the JAX env does.
 """
 
 from __future__ import annotations
@@ -22,19 +25,13 @@ import torch
 
 from brax_torch import maths
 from brax_torch.envs import base
-from brax_torch.envs.assets.humanoid import humanoid_config
+from brax_torch.envs.assets.humanoid import humanoid_config, humanoid_config_spring
 from brax_torch.envs.assets.humanoid_new import humanoid_new_config
 from brax_torch.sim.config import Config
 from brax_torch.sim.types import QP, Tensor
 
 _METRICS = ("forward_reward", "reward_linvel", "reward_quadctrl", "reward_alive", "x_position",
             "y_position", "distance_from_origin", "x_velocity", "y_velocity")
-
-
-def _no_legacy_spring(legacy_spring: bool, name: str) -> None:
-    if legacy_spring:
-        raise NotImplementedError(
-            f"legacy_spring {name} is not ported yet (see ROADMAP.md, queue A item 6)")
 
 
 class HumanoidLegacy(base.Env):
@@ -54,9 +51,9 @@ class HumanoidLegacy(base.Env):
         device="cuda",
         config: Config = None,
     ):
-        _no_legacy_spring(legacy_spring, "humanoid")
-        super().__init__(config=config or humanoid_config(), batch_size=batch_size,
-                         device=device)
+        if config is None:
+            config = humanoid_config_spring() if legacy_spring else humanoid_config()
+        super().__init__(config=config, batch_size=batch_size, device=device)
         self._forward_reward_weight = forward_reward_weight
         self._ctrl_cost_weight = ctrl_cost_weight
         self._healthy_reward = healthy_reward

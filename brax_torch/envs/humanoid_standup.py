@@ -11,18 +11,18 @@ from __future__ import annotations
 import torch
 
 from brax_torch.envs import base
-from brax_torch.envs.assets.humanoid_standup import humanoid_standup_config
-from brax_torch.envs.humanoid import HumanoidLegacy, _no_legacy_spring
+from brax_torch.envs.assets.humanoid_standup import (
+    humanoid_standup_config, humanoid_standup_config_spring)
+from brax_torch.envs.humanoid import HumanoidLegacy
 from brax_torch.sim.types import Tensor
 
 
 class HumanoidStandup(HumanoidLegacy):
 
     def __init__(self, legacy_spring=False, batch_size=1, device="cuda", **kwargs):
-        _no_legacy_spring(legacy_spring, "humanoidstandup")
+        config = humanoid_standup_config_spring() if legacy_spring else humanoid_standup_config()
         super().__init__(reset_noise_scale=1e-2, exclude_current_positions_from_observation=True,
-                         batch_size=batch_size, device=device,
-                         config=humanoid_standup_config())
+                         batch_size=batch_size, device=device, config=config)
 
     def reset_from_noise(self, qpos_noise: Tensor, qvel_noise: Tensor) -> base.State:
         """The reset state for given joint-angle and joint-velocity noise (N, ndof)."""

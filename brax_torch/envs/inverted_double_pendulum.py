@@ -15,8 +15,8 @@ from __future__ import annotations
 import torch
 
 from brax_torch.envs import base
-from brax_torch.envs.assets.inverted_double_pendulum import inverted_double_pendulum_config
-from brax_torch.envs.humanoid import _no_legacy_spring
+from brax_torch.envs.assets.inverted_double_pendulum import (
+    inverted_double_pendulum_config, inverted_double_pendulum_config_spring)
 from brax_torch.envs.inverted_pendulum import NOISE, joint_noise
 from brax_torch.sim.types import QP, Tensor
 
@@ -24,9 +24,9 @@ from brax_torch.sim.types import QP, Tensor
 class InvertedDoublePendulum(base.Env):
 
     def __init__(self, legacy_spring=False, batch_size=1, device="cuda", **kwargs):
-        _no_legacy_spring(legacy_spring, "inverted_double_pendulum")
-        super().__init__(config=inverted_double_pendulum_config(), batch_size=batch_size,
-                         device=device)
+        config = (inverted_double_pendulum_config_spring() if legacy_spring
+                  else inverted_double_pendulum_config())
+        super().__init__(config=config, batch_size=batch_size, device=device)
         self._tip = torch.tensor([0.0, 0.0, 0.3], device=self.device)
 
     def reset(self, rng: torch.Generator) -> base.State:

@@ -15,8 +15,8 @@ from __future__ import annotations
 import torch
 
 from brax_torch.envs import base
-from brax_torch.envs.assets.inverted_pendulum import inverted_pendulum_config
-from brax_torch.envs.humanoid import _no_legacy_spring
+from brax_torch.envs.assets.inverted_pendulum import (
+    inverted_pendulum_config, inverted_pendulum_config_spring)
 from brax_torch.sim.types import QP, Tensor
 
 NOISE = 0.01
@@ -31,9 +31,8 @@ def joint_noise(env: base.Env, rng: torch.Generator, scale: float) -> Tensor:
 class InvertedPendulum(base.Env):
 
     def __init__(self, legacy_spring=False, batch_size=1, device="cuda", **kwargs):
-        _no_legacy_spring(legacy_spring, "inverted_pendulum")
-        super().__init__(config=inverted_pendulum_config(), batch_size=batch_size,
-                         device=device)
+        config = inverted_pendulum_config_spring() if legacy_spring else inverted_pendulum_config()
+        super().__init__(config=config, batch_size=batch_size, device=device)
 
     def reset(self, rng: torch.Generator) -> base.State:
         qpos_noise = joint_noise(self, rng, NOISE)

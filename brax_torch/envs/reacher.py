@@ -19,8 +19,7 @@ import torch
 
 from brax_torch import maths
 from brax_torch.envs import base
-from brax_torch.envs.assets.reacher import reacher_config
-from brax_torch.envs.humanoid import _no_legacy_spring
+from brax_torch.envs.assets.reacher import reacher_config, reacher_config_spring
 from brax_torch.sim.config import Config
 from brax_torch.sim.types import QP, Tensor
 
@@ -32,15 +31,14 @@ class Reacher(base.Env):
     metric_names = _METRICS
 
     def __init__(self, legacy_spring=False, batch_size=1, device="cuda", **kwargs):
-        _no_legacy_spring(legacy_spring, self.name)
-        super().__init__(config=self.scene(), batch_size=batch_size, device=device)
+        super().__init__(config=self.scene(legacy_spring), batch_size=batch_size, device=device)
         self._target_idx = self.art.body_index["target"]
         self._arm_idx = self.art.body_index["body1"]
         self._tip = torch.tensor([0.11, 0.0, 0.0], device=self.device)
 
     @staticmethod
-    def scene() -> Config:
-        return reacher_config()
+    def scene(legacy_spring: bool = False) -> Config:
+        return reacher_config_spring() if legacy_spring else reacher_config()
 
     def reset(self, rng: torch.Generator) -> base.State:
         n, nd = self.batch_size, self.sys.num_joint_dof

@@ -14,7 +14,7 @@ import torch
 
 from brax_torch import maths
 from brax_torch.envs import base
-from brax_torch.envs.assets.reacherangle import reacherangle_config
+from brax_torch.envs.assets.reacherangle import reacherangle_config, reacherangle_config_spring
 from brax_torch.envs.reacher import Reacher
 from brax_torch.sim.config import Config
 from brax_torch.sim.types import Tensor
@@ -31,8 +31,8 @@ class ReacherAngle(Reacher):
         self._range_act = torch.tensor([hi - lo for lo, hi in limits], device=self.device)
 
     @staticmethod
-    def scene() -> Config:
-        return reacherangle_config()
+    def scene(legacy_spring: bool = False) -> Config:
+        return reacherangle_config_spring() if legacy_spring else reacherangle_config()
 
     def _target(self, draws: Tensor) -> Tensor:
         return super()._target(torch.stack([torch.sqrt(draws[:, 0]), draws[:, 1]], dim=-1))

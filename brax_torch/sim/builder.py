@@ -5,7 +5,8 @@ float64 numpy and is cast to float32, then every table moves to `device` as a
 tensor; index tables stay host numpy.  The port builds PBD dynamics, revolute
 joints, spherical joints (a PBD scene whose joints mix dofs, or has a 2-dof
 joint, is "sphericalized": each joint is padded to 3 dofs with (0, 0)
-limits), torque and angle actuators, thruster and twister forces (their
+limits), legacy-spring dynamics (its joints with stiffness > 0 grouped by
+dof, unpadded), torque and angle actuators, thruster and twister forces (their
 action columns follow the actuators'), one-way capsule-plane and box-plane
 contacts and capsule-capsule contacts, one-way (body b frozen) or two-way.
 Any other feature raises NotImplementedError naming it.
@@ -26,6 +27,12 @@ from brax_torch.sim import geometry
 from brax_torch.sim import joints as joints_mod
 from brax_torch.sim.integrator import Integrator
 from brax_torch.sim.system import System
+
+
+# legacy-spring joint groups by dof, and each kind's default spring damping
+# coefficient (spring_damping = coeff * sqrt(stiffness) where a joint sets none)
+SPRING_KINDS = {1: "spring_revolute", 2: "spring_universal", 3: "spring_spherical"}
+SPRING_DAMPING_COEFF = {1: 0.5, 2: 2.0, 3: 2.0}
 
 
 def _not_ported(feature: str):
@@ -72,8 +79,6 @@ class BuildArtifacts:
 
 def build(config: cfg.Config, device="cuda") -> Tuple[System, BuildArtifacts]:
     config = cfg.validate(config)
-    if config.dynamics_mode != "pbd":
-        raise _not_ported(f"dynamics_mode={config.dynamics_mode!r}")
     if config.collider_cutoff:
         raise _not_ported("collider_cutoff (nearest-pair culling)")
 
@@ -165,33 +170,47 @@ def _joint_frames(j: cfg.Joint):
 
 
 def _build_joints(config, body_index, mass, inv_inertia, f32):
-    """Groups the joints by dof, as `brax_tpu/sim/builder.py` does: one
-    revolute group of 1-dof joints, or, when the dofs are mixed or a joint
-    has 2, one spherical group of every joint padded to 3 dofs with (0, 0)
-    limits (the padding is written into `config`, the validated copy, as
-    `brax_tpu/sim/builder.py` writes it into its own)."""
-    dofs = {len(j.angle_limits) for j in config.joints}
-    sphericalize = len(dofs) > 1 or 2 in dofs
-    by_dof: Dict[int, Tuple[list, list]] = {}
-    for joint in config.joints:
-        free = len(joint.angle_limits)
-        if sphericalize:
-            joint.angle_limits = list(joint.angle_limits) + [(0.0, 0.0)] * (3 - free)
-        joints, free_dofs = by_dof.setdefault(len(joint.angle_limits), ([], []))
-        joints.append(joint)
-        free_dofs.append(free)
+    """Groups the joints by dof, as `brax_tpu/sim/builder.py` does.
+
+    PBD: one revolute group of 1-dof joints, or, when the dofs are mixed or
+    a joint has 2, one spherical group of every joint padded to 3 dofs with
+    (0, 0) limits (the padding is written into `config`, the validated copy,
+    as `brax_tpu/sim/builder.py` writes it into its own).  Legacy spring:
+    the joints with stiffness > 0, one group per dof (spring_revolute,
+    spring_universal, spring_spherical), unpadded, each with its own
+    default spring damping coefficient."""
+    if config.dynamics_mode == "legacy_spring":
+        by_dof: Dict[int, list] = {}
+        for joint in config.joints:
+            if joint.stiffness > 0:
+                by_dof.setdefault(len(joint.angle_limits), []).append(joint)
+        spec = [(dof, SPRING_KINDS[dof], joints, None, SPRING_DAMPING_COEFF[dof])
+                for dof, joints in sorted(by_dof.items())]
+    else:
+        dofs = {len(j.angle_limits) for j in config.joints}
+        sphericalize = len(dofs) > 1 or 2 in dofs
+        by_dof: Dict[int, Tuple[list, list]] = {}
+        for joint in config.joints:
+            free = len(joint.angle_limits)
+            if sphericalize:
+                joint.angle_limits = list(joint.angle_limits) + [(0.0, 0.0)] * (3 - free)
+            joints, free_dofs = by_dof.setdefault(len(joint.angle_limits), ([], []))
+            joints.append(joint)
+            free_dofs.append(free)
+        spec = []
+        for dof, (joints, free_dofs) in sorted(by_dof.items()):
+            if dof == 1:
+                spec.append((dof, "revolute", joints, None, 2.0))
+            elif dof == 3:
+                spec.append((dof, "spherical", joints, tuple(free_dofs), 2.0))
+            else:
+                raise RuntimeError(f"invalid number of joint limits: {dof}")
 
     groups, joint_order, group_of_joint, index_in_group = [], [], {}, {}
-    for dof, (joints, free_dofs) in sorted(by_dof.items()):
-        if dof == 1:
-            kind, free = "revolute", None
-        elif dof == 3:
-            kind, free = "spherical", tuple(free_dofs)
-        else:
-            raise RuntimeError(f"invalid number of joint limits: {dof}")
+    for dof, kind, joints, free, coeff in spec:
         gi = len(groups)
         groups.append(_joint_group(kind, dof, joints, free, config, body_index, mass,
-                                   inv_inertia, f32))
+                                   inv_inertia, f32, coeff))
         for k, j in enumerate(joints):
             joint_order.append(j.name)
             group_of_joint[j.name] = gi
@@ -199,23 +218,28 @@ def _build_joints(config, body_index, mass, inv_inertia, f32):
     return groups, joint_order, group_of_joint, index_in_group
 
 
-def _joint_group(kind, dof, joints, free_dofs, config, body_index, mass, inv_inertia, f32):
+def _joint_group(kind, dof, joints, free_dofs, config, body_index, mass, inv_inertia, f32,
+                 spring_damping_coeff):
     parent = np.array([body_index[j.parent] for j in joints], dtype=np.int32)
     child = np.array([body_index[j.child] for j in joints], dtype=np.int32)
     axis_cp = [_joint_frames(j) for j in joints]
     limit = np.array(
         [[[lo, hi] for (lo, hi) in j.angle_limits] for j in joints], dtype=np.float64
     ) / 180.0 * np.pi
-    # PBD joints have zero stiffness, so the spring-mode tables are zero too
+    # a joint's own spring damping, else coeff * sqrt(stiffness) (zero for a
+    # PBD joint, whose stiffness is zero)
     spring_damping = np.array(
-        [j.spring_damping if j.spring_damping is not None else 2.0 * np.sqrt(j.stiffness)
-         for j in joints]
+        [j.spring_damping if j.spring_damping is not None
+         else spring_damping_coeff * np.sqrt(j.stiffness) for j in joints]
     )
     limit_strength = np.array(
         [j.limit_strength if j.limit_strength is not None else j.stiffness for j in joints]
     )
-    scale_pos = config.solver_scale_pos or 0.6
-    scale_ang = config.solver_scale_ang or 0.2
+    if kind in SPRING_KINDS.values():
+        scale_pos, scale_ang = 0.6, 0.2
+    else:
+        scale_pos = config.solver_scale_pos or 0.6
+        scale_ang = config.solver_scale_ang or 0.2
     return joints_mod.JointGroup(
         kind=kind,
         dof=dof,

@@ -112,7 +112,8 @@ def default_qp(
         takes = torch.as_tensor(takes, dtype=torch.long, device=device)
 
         def to_3dof(a):
-            a = torch.cat([a, torch.zeros_like(a[:, :1])], dim=-1)
+            # a zero in column num_joint_dof, also when `a` has no columns
+            a = torch.cat([a, a.new_zeros((n, 1))], dim=-1)
             return a[:, takes].reshape(n, len(joint), 3)
 
         joint_angle3 = to_3dof(joint_angle)

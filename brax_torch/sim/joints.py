@@ -3,9 +3,12 @@
 Counterpart of `brax_tpu/sim/joints.py`.  Joints of one kind form a
 `JointGroup` whose tables have a leading joint axis (nj, ...); they broadcast
 against state gathered to (N, nj, ...) and scatter back onto the body axis
-with one `index_add_`.  The PBD revolute and spherical joints are ported (a
-spherical joint's three Euler rows also hold the 1- and 2-dof joints that
-`builder.build` pads to 3 dofs); spring joints are not ported yet.
+with one `index_add_`.  The PBD revolute and spherical joints (a spherical
+joint's three Euler rows also hold the 1- and 2-dof joints that
+`builder.build` pads to 3 dofs) move bodies at the position level
+(`pbd_apply`); the legacy-spring revolute, universal (2 dofs: the parent's x
+axis and the child's y axis, angles psi and theta) and spherical joints at
+the acceleration level (`spring_apply`).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from brax_torch.sim.types import DP, DQ, QP, Tensor, index
 class JointGroup:
     """A batch of same-kind joints; tensors have a leading (nj,) axis."""
 
-    kind: str  # 'revolute' | 'spherical' (the spring kinds are not ported)
+    kind: str  # 'revolute' | 'spherical' | 'spring_revolute' | 'spring_universal' | 'spring_spherical'
     dof: int
     parent: np.ndarray  # (nj,) body indices
     child: np.ndarray
@@ -112,9 +115,7 @@ def _rotate_frame(axes: Tensor, rot: Tensor) -> Tensor:
 
 def _require_pbd(g: JointGroup):
     if g.kind not in ("revolute", "spherical"):
-        raise NotImplementedError(
-            f"{g.kind} joints are not ported yet (see ROADMAP.md, queue A item 6)"
-        )
+        raise ValueError(f"pbd_apply on non-pbd joint group: {g.kind}")
 
 
 def _normalized(v: Tensor, eps: float) -> Tensor:
@@ -125,13 +126,13 @@ def axis_angle(g: JointGroup, qp_p: QP, qp_c: QP):
     """Joint axes and angles: (..., nj, dof, 3), (..., nj, dof).
 
     A spherical joint's are its x-y'-z'' Euler angles about the line of
-    nodes (psi, theta, phi) and the axes (parent x, child y, child z).
+    nodes (psi, theta, phi) and the axes (parent x, child y, child z); a
+    universal joint's the first two of each.
     """
-    _require_pbd(g)
     axis_p_r = _rotate_frame(g.axis_p, qp_p.rot)
     axis_c_r = _rotate_frame(g.axis_c, qp_c.rot)
     axis_1_p = axis_p_r[..., 0, :]
-    if g.kind == "revolute":
+    if g.kind in ("revolute", "spring_revolute"):
         ref_p = axis_p_r[..., 2, :]
         ref_c = axis_c_r[..., 2, :]
         psi = maths.signed_angle(axis_1_p, ref_p, ref_c)
@@ -145,6 +146,8 @@ def axis_angle(g: JointGroup, qp_p: QP, qp_c: QP):
     in_xz = _normalized(in_xz, 1e-10)
     theta = (maths.safe_arccos(torch.clamp(vdot(in_xz, axis_1_p), -1, 1))
              * torch.sign(vdot(axis_1_p, axis_3_c)))
+    if g.kind == "spring_universal":
+        return torch.stack([axis_1_p, axis_2_c], dim=-2), torch.stack([psi, theta], dim=-1)
     phi = maths.signed_angle(-axis_3_c, axis_2_c, line_of_nodes)
     axes = torch.stack([axis_1_p, axis_2_c, axis_3_c], dim=-2)
     return axes, torch.stack([psi, theta, phi], dim=-1)
@@ -250,3 +253,60 @@ def _spherical_rows(g: JointGroup, qp_p: QP, qp_c: QP, axis_p_r: Tensor, axis_c_
         dq_ang = maths.cross(maths.rotate(n_1, fixrot), n_2) * mask[..., None]
         updates.append(_angle_update(g, qp_p, qp_c, dq_ang))
     return updates
+
+
+def _limit_excess(angles: Tensor, limit: Tensor) -> Tensor:
+    """How far each angle lies outside its limits, toward them: lo - angle
+    below, hi - angle above, 0 inside."""
+    lo, hi = limit[..., 0], limit[..., 1]
+    dang = torch.where(angles < lo, lo - angles, 0.0)
+    return torch.where(angles > hi, hi - angles, dang)
+
+
+def spring_apply(g: JointGroup, qp: QP, nb: int) -> DP:
+    """Acceleration-level spring joint update, scattered onto bodies: a
+    spring-damper pulling the two anchors together, the joint's angular
+    spring (revolute: the hinge axes aligned; universal: the child's y axis
+    held normal to the parent's x axis) and its limit springs, then the
+    angular damping."""
+    qp_p = qp.take(g.parent)
+    qp_c = qp.take(g.child)
+
+    pos_p, vel_p = qp_p.to_world(g.off_p)
+    pos_c, vel_c = qp_c.to_world(g.off_c)
+
+    # push the anchor points together
+    impulse = ((pos_p - pos_c) * g.stiffness[..., None]
+               + g.spring_damping[..., None] * (vel_p - vel_c))
+    dvel_p = -impulse / g.mass_p[..., None]
+    dang_p = g.inertia_p * maths.cross(pos_p - qp_p.pos, -impulse)
+    dvel_c = impulse / g.mass_c[..., None]
+    dang_c = g.inertia_c * maths.cross(pos_c - qp_c.pos, impulse)
+
+    axes, angles = axis_angle(g, qp_p, qp_c)
+    limit_strength = g.limit_strength[..., None]
+    if g.kind == "spring_revolute":
+        axis = axes[..., 0, :]
+        axis_c_x = maths.rotate(g.axis_c[..., 0, :], qp_c.rot)
+        torque = g.stiffness[..., None] * maths.cross(axis, axis_c_x)
+        torque = torque - limit_strength * axis * _limit_excess(angles, g.limit)
+    elif g.kind == "spring_universal":
+        axis_1, axis_2 = axes[..., 0, :], axes[..., 1, :]
+        proj = axis_2 - dot1(axis_2, axis_1) * axis_1
+        proj = proj / maths.safe_norm(proj)[..., None]
+        torque = (limit_strength / 5.0) * maths.cross(proj, axis_2)
+        torque = torque - limit_strength * torch.sum(
+            axes * _limit_excess(angles, g.limit)[..., None], dim=-2)
+    elif g.kind == "spring_spherical":
+        torque = -limit_strength * torch.sum(
+            axes * _limit_excess(angles, g.limit)[..., None], dim=-2)
+    else:
+        raise ValueError(f"spring_apply on non-spring joint group: {g.kind}")
+
+    torque = torque - g.angular_damping[..., None] * (qp_p.ang - qp_c.ang)
+    dang_p = dang_p + g.inertia_p * torque
+    dang_c = dang_c - g.inertia_c * torque
+
+    vel = _scatter_add3(dvel_p, dvel_c, g.parent, g.child, nb)
+    ang = _scatter_add3(dang_p, dang_c, g.parent, g.child, nb)
+    return DP(vel=vel, ang=ang)

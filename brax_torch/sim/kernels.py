@@ -4,8 +4,9 @@ Counterpart of `brax_tpu/sim/kernels.py`.  `pbd_step(sys, qp, act)` steps a
 whole env batch with one launch of `brax_torch/csrc/pbd_step.cu`, which
 replaces the Pallas kernel `_build_tile_step`.  On CPU tensors it runs
 `pbd_step_plain`, the same step written with the sim modules' torch
-functions (the counterpart of the JAX package's jnp `_pbd_step`); on CUDA
-tensors it launches the kernel or raises, and never falls back to the twin.
+functions (the counterpart of the JAX package's jnp `_pbd_step`, and of
+`_spring_step` for a legacy-spring System); on CUDA tensors it launches
+the kernel or raises, and never falls back to the twin.
 
 As the Pallas kernel bakes each System's constants in, the CUDA source is
 compiled once per System: `scene_header` writes the scene (counts,
@@ -33,7 +34,14 @@ contact point and the one-way update of body a alone.  A one-way box-plane
 group (fetch's lower legs on the ground) needs no section of its own:
 `pack_tables` writes each box corner as a capsule-plane record of radius 0,
 as the Pallas body packs it, so a box's eight corners run on eight
-capsule-plane lanes.  A scene without a group compiles none of its code.
+capsule-plane lanes.  A legacy-spring System (the eight envs made with
+legacy_spring=True) defines PBD_SPRING: the step loops over its substeps,
+each a joint lane's spring (revolute, universal or spherical, mixed in one
+System; PBD_SPRING_EULER compiles the universal and spherical code where
+such a joint is) and the actuator on its joint, then the contact lanes'
+velocity-level impulses; its header has PBD_SUBSTEPS where a PBD scene's
+has PBD_PASSES, and the spring tables `pack_tables` appends.  A scene
+without a group compiles none of its code.
 """
 
 from __future__ import annotations
@@ -74,6 +82,14 @@ CC_END_A, CC_OFF_A, CC_RADIUS_A, CC_END_B, CC_OFF_B, CC_RADIUS_B = 0, 3, 6, 7, 1
 CC_FRICTION, CC_ELASTICITY = 14, 15
 # the most dofs of a joint, and so action columns of an actuator
 MAX_DOF = 3
+# legacy spring's records, appended to pack_tables' float table after the
+# forces: a joint's (stiffness, spring_damping, limit_strength), a body's
+# 1 / mass, a contact's (1 / mass_a, 1 / mass_b, the inverse masses its
+# impulse divides by: 1 / mass_a one-way, 1 / mass_a + 1 / mass_b two-way),
+# then the globals (baumgarte_erp); and to the int table: a joint's (dof,
+# the actuator on it or -1)
+SJ_SIZE, SB_SIZE, SC_SIZE, SG_SIZE, SJ_INT = 3, 1, 3, 1, 2
+SPRING_KINDS = {"spring_revolute": 1, "spring_universal": 2, "spring_spherical": 3}
 
 
 # ---------------------------------------------------------------------------
@@ -84,17 +100,24 @@ MAX_DOF = 3
 def unsupported_features(sys: System, n_act: int = 0) -> List[str]:
     """Features of `sys` (and of an action width) that the kernel lacks."""
     missing = []
-    if sys.dynamics_mode != "pbd":
+    spring = sys.dynamics_mode == "legacy_spring"
+    if sys.dynamics_mode not in ("pbd", "legacy_spring"):
         missing.append(f"dynamics_mode={sys.dynamics_mode!r}")
     if sys.collider_cutoff:
         missing.append("collider_cutoff")
+    kinds = SPRING_KINDS if spring else ("revolute", "spherical")
     for g in sys.joint_groups:
-        if g.kind not in ("revolute", "spherical"):
-            missing.append(f"{g.kind} joints")
+        if g.kind not in kinds:
+            missing.append(f"{g.kind} joints" + (" in legacy spring" if spring else ""))
         elif g.kind == "spherical" and g.dof != MAX_DOF:
             missing.append(f"{g.dof}-dof spherical joints")
-    if len({g.kind for g in sys.joint_groups}) > 1:
+    # a legacy-spring System mixes its joint kinds; a PBD one does not yet
+    if not spring and len({g.kind for g in sys.joint_groups}) > 1:
         missing.append("revolute and spherical joints in one System")
+    if spring:
+        driven = [(a.group_index, int(j)) for a in sys.actuator_groups for j in a.joint_sel]
+        if len(set(driven)) < len(driven):
+            missing.append("two actuators on one spring joint")
     for a in sys.actuator_groups:
         if a.kind not in ("torque", "angle"):
             missing.append(f"{a.kind} actuators")
@@ -165,7 +188,8 @@ def pack_tables(sys: System) -> Tuple[np.ndarray, np.ndarray]:
     joint's dofs), contact (group, body a, body b) and force (body, kind:
     0 thruster, 1 twister, three action columns, unclipped: the kernel
     clips them to the action's width) records in the int table.  Contacts
-    are listed group by group, forces group by group after them.
+    are listed group by group, forces group by group after them.  A
+    legacy-spring System appends its spring records (see SJ_SIZE).
     """
     f64 = lambda x: np.asarray(x.detach().cpu().numpy() if isinstance(x, Tensor) else x,
                                dtype=np.float64)
@@ -223,7 +247,32 @@ def pack_tables(sys: System) -> Tuple[np.ndarray, np.ndarray]:
         for k in range(f.n):
             fl += [strength[k], mass[k]]
             il += [int(f.body[k]), FORCE_KINDS.index(f.kind), *(int(c) for c in f.act_index[k])]
+    if sys.dynamics_mode == "legacy_spring":
+        _pack_spring(sys, fl, il, joint_base, f64)
     return np.asarray(fl, dtype=np.float32), np.asarray(il, dtype=np.int32)
+
+
+def _pack_spring(sys: System, fl: list, il: list, joint_base: List[int], f64) -> None:
+    """Appends a legacy-spring System's records (see SJ_SIZE) to the tables.
+    The inverse masses are taken in float64 and rounded once, as the Pallas
+    body's constants are; a massless body's (the frozen floor's) is 0."""
+    inv = lambda m: 1.0 / m if m else 0.0
+    act_of = {joint_base[a.group_index] + int(j): k
+              for k, (a, j) in enumerate((a, j) for a in sys.actuator_groups for j in a.joint_sel)}
+    for gi, g in enumerate(sys.joint_groups):
+        stiffness, damping = f64(g.stiffness), f64(g.spring_damping)
+        strength = f64(g.limit_strength)
+        for j in range(g.n):
+            fl += [stiffness[j], damping[j], strength[j]]
+            il += [g.dof, act_of.get(joint_base[gi] + j, -1)]
+    fl += [inv(m) for m in f64(sys.mass)]
+    for c in sys.contact_groups:
+        ma, mb = f64(c.com.mass_a), f64(c.com.mass_b)
+        per_pair = _n_contacts(c) // ma.shape[0]
+        for p in range(ma.shape[0]):
+            both = inv(ma[p]) if c.com.one_way else inv(ma[p]) + inv(mb[p])
+            fl += [inv(ma[p]), inv(mb[p]), both] * per_pair
+    fl.append(sys.solver.baumgarte_erp)
 
 
 # ---------------------------------------------------------------------------
@@ -247,6 +296,13 @@ class Plan:
     and the forces on it (force order).  A one-way capsule-capsule contact
     (body b frozen) updates body a alone, so no body gathers it as body b.
     A scene without contacts has one empty group.
+
+    A legacy-spring System (`spring`) loops over `passes` = substeps full
+    substeps.  Joint j's lane computes its spring and the actuator on it
+    (`joint_act`, -1 for none); a body lane gathers the joints it touches in
+    joint order (`body_spring_joints`: (joint, +1 as its parent, -1 as its
+    child)), as the Pallas body's scatter adds them, and its actuators from
+    their joints' lanes.
     """
 
     nb: int
@@ -275,6 +331,15 @@ class Plan:
     force_col: Tuple[Tuple[int, int, int], ...]  # unclipped
     body_forces: Tuple[Tuple[int, ...], ...]
     contact_oneway: Tuple[bool, ...]  # a one-way capsule-capsule contact
+    spring: bool = False
+    joint_dof: Tuple[int, ...] = ()  # legacy spring: 1 revolute, 2 universal, 3 spherical
+    joint_act: Tuple[int, ...] = ()  # legacy spring: the actuator on the joint, -1 for none
+    body_spring_joints: Tuple[Tuple[Tuple[int, int], ...], ...] = ()
+
+    @property
+    def euler(self) -> bool:
+        """Legacy-spring universal or spherical joints (their Euler angles)."""
+        return any(d > 1 for d in self.joint_dof)
 
     @property
     def capcap(self) -> bool:
@@ -330,6 +395,11 @@ class Plan:
         """KF: the longest per-body force list, at least 1."""
         return _longest(self.body_forces)
 
+    @property
+    def width_sj(self) -> int:
+        """KSJ: the longest per-body spring-joint list, at least 1."""
+        return _longest(self.body_spring_joints)
+
 
 def _longest(lists) -> int:
     return max([len(x) for x in lists] + [1])
@@ -351,9 +421,11 @@ def plan(sys: System) -> Plan:
     nc = sum(_n_contacts(c) for c in sys.contact_groups)
     nf = sum(f.n for f in sys.force_groups)
     a_int = 1 + MAX_DOF
-    at = np.cumsum([0, 2 * nj, a_int * na, 3 * nc, F_INT * nf])
-    joints, acts, contacts, forces = (itab[at[i]:at[i + 1]].reshape(-1, size)
-                                      for i, size in enumerate((2, a_int, 3, F_INT)))
+    spring = sys.dynamics_mode == "legacy_spring"
+    at = np.cumsum([0, 2 * nj, a_int * na, 3 * nc, F_INT * nf, SJ_INT * nj * spring])
+    joints, acts, contacts, forces, springs = (
+        itab[at[i]:at[i + 1]].reshape(-1, size)
+        for i, size in enumerate((2, a_int, 3, F_INT, SJ_INT)))
     lanes = _next_pow2(max(nb, nj, na, nc, nf, 1))
     if lanes > WARP:
         raise NotImplementedError(
@@ -371,7 +443,8 @@ def plan(sys: System) -> Plan:
               for b in range(nb))
         for g in range(groups))
     p = Plan(
-        nb=nb, nj=nj, na=na, nc=nc, passes=sys.substeps // 2, lanes=lanes,
+        nb=nb, nj=nj, na=na, nc=nc, passes=sys.substeps if spring else sys.substeps // 2,
+        lanes=lanes,
         envs_per_block=WARP // lanes,
         spherical=any(g.kind == "spherical" for g in sys.joint_groups),
         joint_parent=tuple(parent), joint_child=tuple(child),
@@ -394,6 +467,12 @@ def plan(sys: System) -> Plan:
         force_col=tuple(tuple(row) for row in forces[:, 2:].tolist()),
         body_forces=tuple(tuple(f for f in range(nf) if forces[f, 0] == b) for b in range(nb)),
         contact_oneway=oneway,
+        spring=spring,
+        joint_dof=tuple(springs[:, 0].tolist()),
+        joint_act=tuple(springs[:, 1].tolist()),
+        body_spring_joints=tuple(
+            tuple((j, 1 if parent[j] == b else -1) for j in range(nj) if b in (parent[j], child[j]))
+            for b in range(nb)) if spring else (),
     )
     sys.__dict__["_pbd_plan"] = p
     return p
@@ -460,11 +539,14 @@ def scene_header(sys: System) -> str:
         size = CC_SIZE if is_cc else C_SIZE
         (capcaps if is_cc else contacts)[c] = ftab[start:start + size]
         start += size
-    forces = ftab[start:].reshape(-1, F_SIZE)
+    forces = ftab[start:start + F_SIZE * p.nf].reshape(-1, F_SIZE)
+    start += F_SIZE * p.nf
     g = glob[0]
     defines = {
         "PBD_NB": p.nb, "PBD_NJ": p.nj, "PBD_NA": p.na, "PBD_NC": p.nc, "PBD_NG": p.ng,
-        "PBD_PASSES": p.passes, "PBD_LANES": L, "PBD_ENVS_PER_BLOCK": p.envs_per_block,
+        # a legacy-spring scene loops over its substeps, a PBD one over passes
+        "PBD_SUBSTEPS" if p.spring else "PBD_PASSES": p.passes,
+        "PBD_LANES": L, "PBD_ENVS_PER_BLOCK": p.envs_per_block,
         "PBD_KC": kc, "PBD_KP": kp, "PBD_KA": ka, "PBD_KG": kg,
         "PBD_DT": _f32(g[0]), "PBD_GRAVITY_X": _f32(g[1]), "PBD_GRAVITY_Y": _f32(g[2]),
         "PBD_GRAVITY_Z": _f32(g[3]), "PBD_VEL_DECAY": _f32(g[4]), "PBD_ANG_DECAY": _f32(g[5]),
@@ -525,7 +607,39 @@ def scene_header(sys: System) -> str:
         ]
     if p.angle:
         parts.append(_lane_ints("ACT_ANGLE", [int(x) for x in p.act_angle], L, 0))
+    if p.spring:
+        parts += _spring_header(p, ftab[start:], L)
     return "".join(parts)
+
+
+def _spring_header(p: Plan, ftab: np.ndarray, L: int) -> List[str]:
+    """A legacy-spring scene's defines and tables: PBD_SPRING, PBD_KSJ (the
+    longest per-body spring-joint list), PBD_BAUMGARTE, PBD_SPRING_EULER
+    for universal or spherical joints; SPRING_F ([stiffness,
+    spring_damping, limit_strength][joint]), JOINT_DOF, JOINT_ACT, SPRING_B_F
+    ([1 / mass][body]), SPRING_C_F ([1 / mass_a, 1 / mass_b, the impulse's
+    inverse masses][contact]), BODY_SJ and BODY_SJ_SIGN ([k][body])."""
+    at = np.cumsum([0, SJ_SIZE * p.nj, SB_SIZE * p.nb, SC_SIZE * p.nc, SG_SIZE])
+    joints, bodies, contacts, glob = (ftab[at[i]:at[i + 1]].reshape(-1, size)
+                                      for i, size in enumerate((SJ_SIZE, SB_SIZE, SC_SIZE,
+                                                                SG_SIZE)))
+    ksj = p.width_sj
+    parts = [f"#define PBD_SPRING 1\n#define PBD_KSJ {ksj}\n"
+             f"#define PBD_BAUMGARTE {_f32(glob[0, 0])}\n"]
+    if p.euler:
+        parts.append("#define PBD_SPRING_EULER 1\n")
+    return parts + [
+        _lane_floats("SPRING_F", joints, L),
+        _lane_ints("JOINT_DOF", p.joint_dof, L, 1),
+        _lane_ints("JOINT_ACT", p.joint_act, L, -1),
+        _lane_floats("SPRING_B_F", bodies, L),
+        _lane_floats("SPRING_C_F", contacts, L),
+        _lane_int_rows("BODY_SJ", _list_rows([[j for j, _ in x] for x in p.body_spring_joints],
+                                             ksj), L, -1),
+        _lane_int_rows("BODY_SJ_SIGN",
+                       _list_rows([[sg for _, sg in x] for x in p.body_spring_joints], ksj, 0),
+                       L, 0),
+    ]
 
 
 def kernel_source(sys: System):
@@ -632,18 +746,41 @@ def _half_substep(sys: System, qp: QP, act: Tensor) -> QP:
     return sys.integrator.update_pos(qp, dq_j)
 
 
+def _spring_step_plain(sys: System, qp: QP, act: Tensor) -> Tuple[QP, Info]:
+    """Legacy-spring dynamics, the counterpart of the JAX package's jnp
+    `_spring_step`: per substep, the kinetic step, then the spring joints',
+    the actuators' and the forces' accelerations (no joint damping: a spring
+    joint's angular damping is in its torque), then the contacts' impulses
+    at the velocity level."""
+    integ, nb = sys.integrator, sys.nb
+    contact = _zero_dp(qp)
+    for _ in range(sys.substeps):
+        qp = integ.kinetic(qp)
+        dp_j = sum((joints_mod.spring_apply(g, qp, nb) for g in sys.joint_groups), _zero_dp(qp))
+        dp_a = sum((actuators_mod.apply(a, sys.joint_groups[a.group_index], qp, act, nb)
+                    for a in sys.actuator_groups), _zero_dp(qp))
+        dp_f = sum((actuators_mod.force_apply(f, qp, act, nb) for f in sys.force_groups),
+                   _zero_dp(qp))
+        qp = integ.update_acc(qp, dp_j + dp_a + dp_f)
+        dp_c = sum((colliders_mod.spring_apply(g, qp, sys.solver, nb)[0]
+                    for g in sys.contact_groups), _zero_dp(qp))
+        qp = integ.update_vel(qp, dp_c)
+        contact = contact + dp_c
+    return qp, _kernel_info(contact, qp.pos.shape[0], qp.pos.device)
+
+
 def pbd_step_plain(sys: System, qp: QP, act: Tensor) -> Tuple[QP, Info]:
     """The kernel's plain-torch twin: same inputs, same outputs.
 
     Position-based dynamics, two physics substeps per collision pass, a
-    Python loop over `substeps // 2` passes.  Info.contact holds the contact
-    impulses summed over the passes; Info.joint and Info.actuator are zero,
-    as the JAX kernel path returns them.
+    Python loop over `substeps // 2` passes; a legacy-spring System runs
+    `_spring_step_plain`'s `substeps` full substeps instead.  Info.contact
+    holds the contact impulses summed over the passes (substeps);
+    Info.joint and Info.actuator are zero, as the JAX kernel path returns
+    them.
     """
-    if sys.dynamics_mode != "pbd":
-        raise NotImplementedError(
-            f"dynamics_mode={sys.dynamics_mode!r} is not ported yet (see ROADMAP.md)"
-        )
+    if sys.dynamics_mode == "legacy_spring":
+        return _spring_step_plain(sys, qp, act)
     integ, nb = sys.integrator, sys.nb
     contact = _zero_dp(qp)
     for _ in range(sys.substeps // 2):

@@ -5,8 +5,8 @@ tables built from a scene `Config` by `brax_torch.sim.builder`.  One call
 steps the whole env batch, so the JAX package's `custom_vmap` rerouting has no
 counterpart: `step` goes straight to the fused kernel's wrapper,
 `kernels.pbd_step`, which runs the CUDA kernel on CUDA tensors and its
-plain-torch twin (`kernels.pbd_step_plain`, the counterpart of `_pbd_step`)
-on CPU tensors.
+plain-torch twin (`kernels.pbd_step_plain`, the counterpart of `_pbd_step`
+and, in legacy spring, of `_spring_step`) on CPU tensors.
 """
 
 from __future__ import annotations
@@ -165,7 +165,8 @@ def step(sys: System, qp: QP, act: Tensor) -> Tuple[QP, Info]:
 
 
 def info(sys: System, qp: QP) -> Info:
-    """State telemetry for reset: contact impulses and joint corrections."""
+    """State telemetry for reset: contact impulses and joint corrections
+    (position-level in PBD, acceleration-level in legacy spring)."""
     nb = sys.nb
     zero = DP(torch.zeros_like(qp.pos), torch.zeros_like(qp.pos))
     collide = [colliders_mod.spring_apply(g, qp, sys.solver, nb) for g in sys.contact_groups]
@@ -181,10 +182,17 @@ def info(sys: System, qp: QP) -> Info:
         pen = -torch.ones(batch + (1,), device=qp.pos.device)
     return Info(
         contact=sum((c[0] for c in collide), zero),
-        joint=sum((joints_mod.pbd_apply(g, qp, nb) for g in sys.joint_groups),
-                  DQ(torch.zeros_like(qp.pos), torch.zeros_like(qp.rot))),
+        joint=_joint_info(sys, qp),
         actuator=zero,
         contact_pos=pos,
         contact_normal=normal,
         contact_penetration=pen,
     )
+
+
+def _joint_info(sys: System, qp: QP):
+    if sys.dynamics_mode == "legacy_spring":
+        return sum((joints_mod.spring_apply(g, qp, sys.nb) for g in sys.joint_groups),
+                   DP(torch.zeros_like(qp.pos), torch.zeros_like(qp.pos)))
+    return sum((joints_mod.pbd_apply(g, qp, sys.nb) for g in sys.joint_groups),
+               DQ(torch.zeros_like(qp.pos), torch.zeros_like(qp.rot)))

@@ -3,9 +3,9 @@ twin (`kernels.pbd_step_plain`) on the same inputs, the states of v1
 halfcheetah and pusher whose two-way capsule-capsule pairs overlap, the
 physics actions of the thruster and angle-actuator scenes and of hopper
 and walker2d, grasp's states (its claw closed on the ball), fetch's (its
-feet on the ground), and Systems made for what no default scene
-has (a one-way pair whose body b moves, padded spherical angle dofs, a
-twister).
+feet on the ground), the legacy-spring envs' states (`spring_states`),
+and Systems made for what no default scene has (a one-way pair whose body
+b moves, padded spherical angle dofs, a twister).
 
 `chip_smoke.py` and the tests (`tests/test_torch_cuda.py` on the card,
 `tests/test_torch_pbd_launch.py` and `tests/test_torch_halfcheetah.py` on
@@ -106,6 +106,26 @@ RULES = {
                "after 10 twin steps": ("max_errors", "max_errors")},
     "walker2d": {"reset": ("max_errors", "max_errors"),
                  "after 10 twin steps": ("max_errors", "max_errors")},
+    # legacy spring (SPRING_SCENES below; "<env>_spring", one substep and
+    # the whole step): the chaos rule where the twin itself left TOLERANCE
+    # in more than MAX_OUTLIERS of 4096 envs under CHAOS_NOISE in one of
+    # three draws on the CPU (one substep / whole step): ant's reset 2-4 /
+    # 4-11, after 10 steps 1-3 / 2-3; halfcheetah's 31-35 / 613-634 and
+    # 2-5 / 476-497; humanoid_legacy's 85-105 / 90-103 and 1-2 / 9-12;
+    # humanoidstandup's 1098-1128 / 150-161 and 2-4 / 9-14 (at reset each
+    # contact sits exactly on the floor, so whether its impulse applies is
+    # decided by the last bit); the scenes without contacts 0 / 0
+    "ant_spring": {"reset": ("max_errors", "chaos_rule"),
+                   "after 10 twin steps": ("max_errors", "max_errors")},
+    "halfcheetah_spring": {"reset": ("chaos_rule", "chaos_rule"),
+                           "after 10 twin steps": ("chaos_rule", "chaos_rule")},
+    "humanoid_legacy_spring": {"reset": ("chaos_rule", "chaos_rule"),
+                               "after 10 twin steps": ("max_errors", "chaos_rule")},
+    "humanoidstandup_spring": {"reset": ("chaos_rule", "chaos_rule"),
+                               "after 10 twin steps": ("max_errors", "chaos_rule")},
+    **{f"{name}_spring": {"reset": ("max_errors", "max_errors"),
+                          "after 10 twin steps": ("max_errors", "max_errors")}
+       for name in ("inverted_pendulum", "inverted_double_pendulum", "reacher", "reacherangle")},
 }
 
 
@@ -120,10 +140,10 @@ def per_env_errors(a, b):
 
 
 def one_pass(sys_):
-    """The System stepped over one PBD pass (2 substeps): what the kernel's
-    loop over passes repeats, so rounding differences are not carried into
-    the next pass."""
-    return dataclasses.replace(sys_, substeps=2)
+    """The System stepped over one PBD pass (2 substeps), or one substep in
+    legacy spring: what the kernel's loop repeats, so rounding differences
+    are not carried into the next pass."""
+    return dataclasses.replace(sys_, substeps=1 if sys_.dynamics_mode == "legacy_spring" else 2)
 
 
 def rounding_decided(sys_, qp, act, idx, kernel_out, gen):
@@ -321,8 +341,9 @@ def hold(rule, sys_, qp, act, gen, label):
 
 def hold_capcap(name, state, sys_, qp, act, gen, label):
     """A scene's kernel (the capsule-capsule scenes halfcheetah, pusher and
-    grasp; fetch, hopper and walker2d) against the twin from one state, over
-    one pass and over the whole step, each by the rule RULES names.  Raises
+    grasp; fetch, hopper and walker2d; the spring scenes, "<env>_spring")
+    against the twin from one state, over one pass (a spring scene's one
+    substep) and over the whole step, each by the rule RULES names.  Raises
     where a rule fails; returns the record."""
     one, whole = RULES[name][state]
     own = twin_own_outside(sys_, qp, act, gen)
@@ -538,3 +559,44 @@ def twister_swimmer(device):
     cfg = swimmer_config()
     cfg.forces[0].kind = "twister"
     return builder.build(cfg, device=device)[0]
+
+
+# legacy spring: the eight envs whose legacy_spring=True switches to a
+# spring scene, each held from a reset and after 10 twin steps on actions
+# uniform in [-1, 1] (reacherangle's in degrees, +-300, past its joints'
+# limits); inverted_double_pendulum's env cannot reset in legacy spring (nor
+# can the JAX one: its hinges' (0, 0) limits give no default angles for the
+# joint noise), so its first state is default_qp, both angles 0
+SPRING_SCENES = ("ant", "halfcheetah", "humanoid_legacy", "humanoidstandup",
+                 "inverted_pendulum", "inverted_double_pendulum", "reacher", "reacherangle")
+SPRING_STATES = ("reset", "after 10 twin steps")
+
+
+def spring_env(name, n, device):
+    """The bare env `name` made with legacy_spring=True, n envs."""
+    from brax_torch import envs
+
+    return envs.create(name, episode_length=None, auto_reset=False, batch_size=n,
+                       device=device, legacy_spring=True).unwrapped
+
+
+def spring_actions(name, env, n, gen, device):
+    """(n, action_size) actions uniform in [-1, 1]; reacherangle's x 300."""
+    act = torch.rand((n, env.action_size), generator=gen, device=device) * 2 - 1
+    return act * 300.0 if name == "reacherangle" else act
+
+
+def spring_states(name, env, n, seed, device, sys_=None):
+    """{state: (qp, act)} of a spring scene at n envs (SPRING_STATES), each
+    with one more action; the twin steps `sys_` (default env.sys)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    act = lambda: spring_actions(name, env, n, gen, device)
+    if name == "inverted_double_pendulum":
+        zero = torch.zeros((n, 0), device=device)
+        reset = env.default_qp(joint_angle=zero, joint_velocity=zero)
+    else:
+        reset = env.reset(gen).qp
+    settled = reset
+    for _ in range(10):
+        settled, _ = kernels.pbd_step_plain(sys_ or env.sys, settled, act())
+    return {SPRING_STATES[0]: (reset, act()), SPRING_STATES[1]: (settled, act())}

@@ -8,11 +8,11 @@ OTHER_PBD_STEP_CU is, for example, a parent commit's source unpacked by
 this package's scene header in front (`kernels.scene_header`), as this
 package compiles its own, so it must read the same header and export the
 same C interface (`brax_pbd_step`, `brax_pbd_step_sizes`,
-`brax_pbd_step_occupancy`).  For each scene (default: the thirteen
-Systems of the scenes before fetch: ant, humanoid (humanoid_legacy builds
-the same System), humanoidstandup, halfcheetah, pusher, inverted_pendulum,
+`brax_pbd_step_occupancy`).  For each scene (default: the sixteen PBD
+Systems of the registry: ant, humanoid (humanoid_legacy builds the same
+System), humanoidstandup, halfcheetah, pusher, inverted_pendulum,
 inverted_double_pendulum, swimmer, reacherangle, reacher, grasp, acrobot,
-ur5e) both builds' SASS instructions are
+ur5e, fetch, hopper, walker2d) both builds' SASS instructions are
 compared (cuobjdump; the same code when equal), and both kernels step the
 same 4096 envs, 10 twin steps after a reset (in contact), and the first
 2048 and 128 of them: the largest difference of their outputs (0: the
@@ -38,7 +38,7 @@ from brax_torch.tools import probe_overhead as probe
 
 SCENES = ("ant", "humanoid", "humanoidstandup", "halfcheetah", "pusher", "inverted_pendulum",
           "inverted_double_pendulum", "swimmer", "reacherangle", "reacher", "grasp", "acrobot",
-          "ur5e")
+          "ur5e", "fetch", "hopper", "walker2d")
 BATCHES = (4096, 2048, 128)
 CALLS = 20
 OUTPUTS = ("pos", "rot", "vel", "ang", "contact_vel", "contact_ang")

@@ -7,8 +7,9 @@
    humanoid's, humanoidstandup's, halfcheetah's, pusher's,
    inverted_pendulum's, inverted_double_pendulum's, swimmer's,
    reacherangle's, reacher's, grasp's, acrobot's, ur5e's, fetch's,
-   hopper's and walker2d's Systems (and grasp's and fetch's one-pass
-   Systems and swimmer's with a twister; each scene's header in front,
+   hopper's and walker2d's Systems, the eight legacy-spring Systems (and
+   grasp's, fetch's and the spring ones' one-pass Systems and swimmer's
+   with a twister; each scene's header in front,
    brax_torch.sim.kernels.kernel_source) and prints ptxas's register and
    spill reports and the launches (lanes per env, envs per block, resident
    blocks per SM, waves);
@@ -110,6 +111,23 @@
    DEFAULT_PPO_PARAMS["fetch"] for 2 training steps and one evaluation of
    128 envs, with exact launch counts (per training step 80 PBD, 464 fused
    forward, 256 backward) and its env-steps/s;
+9f. legacy spring (the PBD kernel's PBD_SPRING section: the step's
+   substeps of spring joints, actuators and forces, then velocity-level
+   contacts), on the eight envs legacy_spring=True switches: each spring
+   System held against the twin at 4096 envs from a reset (the double
+   pendulum's, which cannot reset, default_qp) and after 10 twin steps
+   (pbd_parity.spring_states), over one substep (the System with 1
+   substep, a kernel of its own) and over the whole step, each by the rule
+   pbd_parity.RULES names ("<env>_spring"); the main paths
+   envs.create(name, batch_size=4096, legacy_spring=True) of ant (200
+   steps, profiled) and six more (50 each), one launch per step, and the
+   double pendulum's System stepped 50 times from default_qp (its env's
+   reset raises, as the JAX env's does); the kernel timed per scene as in
+   step 5 beside its bound; PPO at DEFAULT_PPO_PARAMS["ant"] on a factory
+   of envs.create_fn("ant", legacy_spring=True) for 2 training steps and
+   one evaluation of 128 envs, with exact launch counts (per training step
+   80 PBD, 464 fused forward, 256 backward: ant's shapes, whose fused
+   kernels step 6 holds);
 10. holds the generalized-step kernel (brax_torch/csrc/gen_step.cu, built
    for the v2 ant) against its plain version at 4096 envs from a state 10
    plain env steps after reset, at one frame and at ant's five, with the
@@ -168,10 +186,11 @@ from brax_torch.braxlines.defaults import DEFAULT_PPO_PARAMS
 from brax_torch.sim import kernels
 from brax_torch.tools import probe_overhead as probe
 from brax_torch.tools.pbd_parity import (MAX_OUTLIERS, PERTURBED_COPIES, ROUNDING_NOISE,
-                                         RULES, STATES, TOLERANCE, capcap_share, capcap_state,
-                                         contact_share, corners_down, fetch_states,
+                                         RULES, SPRING_SCENES, STATES, TOLERANCE, capcap_share,
+                                         capcap_state, contact_share, corners_down, fetch_states,
                                          fingertips_on_ball, force_scene_states, grasp_states,
-                                         hold_capcap, max_errors, one_pass, twister_swimmer)
+                                         hold_capcap, max_errors, one_pass, spring_env,
+                                         spring_states, twister_swimmer)
 from brax_torch.training import fused_mlp
 from brax_torch.training.agents.ppo import networks as ppo_networks
 from brax_torch.training.agents.ppo import train as ppo
@@ -300,6 +319,16 @@ PPO_GRASP_STEPS = 2
 FETCH_ENV_STEPS = {"fetch": MAIN_STEPS, "hopper": 50, "walker2d": 50}
 FETCH_OBS = {"fetch": 101, "hopper": 11, "walker2d": 17}
 PPO_FETCH_STEPS = 2
+# legacy spring: the eight envs legacy_spring=True switches (PBD_SPRING),
+# each env's main-path steps and observation width (the humanoids' 227: the
+# spring System's 17 unpadded dofs); inverted_double_pendulum's env cannot
+# reset in legacy spring, so its System steps from default_qp
+SPRING_ENV_STEPS = {name: MAIN_STEPS if name == "ant" else 50 for name in SPRING_SCENES}
+SPRING_OBS = {"ant": 87, "halfcheetah": 18, "humanoid_legacy": 227, "humanoidstandup": 227,
+              "inverted_pendulum": 4, "reacher": 11, "reacherangle": 11}
+PPO_SPRING_STEPS = 2
+# the factory PPO trains the spring ant on
+SPRING_ANT = envs.create_fn("ant", legacy_spring=True, episode_length=None, auto_reset=False)
 # the PBD kernel's batch sizes: PPO's eval, PPO's training batch, env.step's
 PBD_TIMING_ENVS = (PPO_EVAL_ENVS, 2048, N_ENVS)
 PROFILE_EPISODE = 10
@@ -393,13 +422,14 @@ def profile_env_step(tag, label, env, state, act_gen, steps=20):
     return state, rec
 
 
-def v1_main_path(tag, name, steps, obs_width, warm, label=None):
-    """`steps` env.step calls of envs.create(name, batch_size=N_ENVS) with
-    random actions, exactly one PBD launch each (counts set to 0 just before,
-    read just after), finite observations of `obs_width`; printed as
-    `label` (default: name).  Returns (env, state, act_gen, record)."""
+def v1_main_path(tag, name, steps, obs_width, warm, label=None, **kwargs):
+    """`steps` env.step calls of envs.create(name, batch_size=N_ENVS,
+    **kwargs) with random actions, exactly one PBD launch each (counts set
+    to 0 just before, read just after), finite observations of
+    `obs_width`; printed as `label` (default: name).  Returns (env, state,
+    act_gen, record)."""
     label = label or name
-    env = envs.create(name, episode_length=1000, auto_reset=True, batch_size=N_ENVS)
+    env = envs.create(name, episode_length=1000, auto_reset=True, batch_size=N_ENVS, **kwargs)
     state = env.reset(torch.Generator(device=DEVICE).manual_seed(1))
     act_gen = torch.Generator(device=DEVICE).manual_seed(2)
     kernels.pbd_step_launch.launches = 0
@@ -1596,6 +1626,138 @@ def fetch_paths(tag, phase, b_envs, checks, fused_plans, times, bounds):
             "per_step": per_step_f, "fused_ms": f_fused_ms, "seconds": f_ppo_s}
 
 
+def spring_ant(batch_size, device):
+    """The bare spring ant (envs.create_fn("ant", legacy_spring=True)): the
+    factory PPO trains on."""
+    return SPRING_ANT(batch_size=batch_size, device=device).unwrapped
+
+
+def spring_physics_path(tag, name, steps):
+    """inverted_double_pendulum's legacy-spring System, whose env cannot
+    reset (its reset raises, checked here, as the JAX env's does): `steps`
+    sys.step calls at N_ENVS envs from default_qp (both angles 0) with
+    random actions, exactly one PBD launch each, finite states."""
+    env = spring_env(name, N_ENVS, DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    try:
+        env.reset(gen)
+    except RuntimeError as err:
+        print(f"main path {name} (legacy spring): reset raises, as the JAX env's does: {err}")
+    else:
+        raise AssertionError(f"{name}'s legacy-spring env reset")
+    zero = torch.zeros((N_ENVS, 0), device=DEVICE)
+    qp = env.default_qp(joint_angle=zero, joint_velocity=zero)
+    kernels.pbd_step_launch.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        act = torch.rand((N_ENVS, env.action_size), generator=gen, device=DEVICE) * 2 - 1
+        qp, _ = env.sys.step(qp, act)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    launches = kernels.pbd_step_launch.launches
+    if launches != steps:
+        raise AssertionError(f"{steps} {name} spring steps made {launches} kernel launches")
+    if not all(bool(torch.isfinite(t).all()) for t in (qp.pos, qp.rot, qp.vel, qp.ang)):
+        raise AssertionError(f"non-finite {name} spring state after the main path")
+    print(f"main path {name} (legacy spring): {steps} sys.step calls from default_qp, "
+          f"{launches} kernel launches, state finite; {step_s * 1e3:.4f} ms/step (host clock) "
+          f"{tag}")
+    return {"launches": launches, "sys_step_ms": step_s * 1e3}
+
+
+def spring_paths(tag, phase, s_envs):
+    """The legacy-spring phases (the PBD kernel's PBD_SPRING section) of the
+    eight envs legacy_spring=True switches (`s_envs`, the bare envs at
+    N_ENVS): each spring System against the twin from a reset and after 10
+    twin steps (pbd_parity.spring_states), over one substep and over the
+    whole step, each by the rule pbd_parity.RULES names; the main paths
+    (env.step of spring ant, profiled, and six more; the double pendulum's
+    System from default_qp), exact launch counts; the kernel's timings and
+    bound per scene; PPO at the ant recipe on the spring ant for
+    PPO_SPRING_STEPS training steps and one evaluation, with exact launch
+    counts."""
+    device = DEVICE
+    phase("legacy spring: pbd_step parity")
+    gen = torch.Generator(device=device).manual_seed(7)
+    s_scene = {}
+    for name, env_ in s_envs.items():
+        checks_s = {}
+        for state, (qp, act) in spring_states(name, env_, N_ENVS, 0, device).items():
+            share = contact_share(env_.sys, qp, act)
+            rule = RULES[f"{name}_spring"][state]
+            print(f"parity state: {name} (legacy spring), {N_ENVS} envs, {state}, action "
+                  f"{tuple(act.shape)}, {share:.3f} in contact; one substep by {rule[0]}, the "
+                  f"whole step by {rule[1]}")
+            checks_s[state] = {**hold_capcap(f"{name}_spring", state, env_.sys, qp, act, gen,
+                                             f"{name} spring {state} "),
+                               "contact_share": share}
+        s_scene[name] = {"sys": env_.sys, "qp": qp, "act": act, "checks": checks_s}
+
+    phase("legacy spring: main paths")
+    s_main = {}
+    for name, steps in SPRING_ENV_STEPS.items():
+        if name == "inverted_double_pendulum":
+            s_main[name] = spring_physics_path(tag, name, steps)
+            continue
+        env_, state_, act_gen, s_main[name] = v1_main_path(
+            tag, name, steps, SPRING_OBS[name], warm=20 if steps == MAIN_STEPS else 10,
+            label=f"{name} (legacy spring)", legacy_spring=True)
+        if name == "ant":
+            state_, s_main[name]["profile"] = profile_env_step(tag, "ant (legacy spring)", env_,
+                                                               state_, act_gen)
+
+    phase("legacy spring: pbd_step timings")
+    for name, r in s_scene.items():
+        sys_, qp, act = r["sys"], r["qp"], r["act"]
+        b = pbd_bound(sys_, qp, act)
+        r["bound"] = dict(zip(("bound_ms", "bound_by", "ops", "bytes"), b[:4]))
+        r["plain_ms"] = cuda_ms(lambda: kernels.pbd_step_plain(sys_, qp, act), reps=5, warmup=1)
+        r["ms_by_envs"] = pbd_timings(tag, sys_, qp, act, b[0] / N_ENVS, f"{name} spring")
+        print(f"bound {tag}: pbd_step {name} spring at {N_ENVS} envs: {b[3]} bytes -> "
+              f"{b[4]:.5f} ms at 3.35 TB/s; {b[2]} fp32 ops (the twin's, counted) -> "
+              f"{b[5]:.5f} ms at 67 TFLOP/s; plain twin {r['plain_ms']:.3f} ms/step")
+
+    phase("legacy spring: PPO on the spring ant")
+    p_s = recipe("ant")
+    rollout_s, sgd_s, _ = launch_plan(p_s)
+    per_step_s = {"pbd_step": rollout_s * p_s["action_repeat"],
+                  "fused_mlp_fwd": rollout_s + 3 * sgd_s, "fused_mlp_bwd": 2 * sgd_s}
+    if per_step_s != {"pbd_step": 80, "fused_mlp_fwd": 464, "fused_mlp_bwd": 256}:
+        raise AssertionError(f"ant recipe launches per training step {per_step_s}")
+    want_s = dict(zip(("fused_mlp_fwd", "fused_mlp_bwd", "pbd_step"),
+                      expected_launches(p_s, PPO_SPRING_STEPS)))
+    recorder = InitRecorder()
+    kernels.pbd_step_launch.launches = 0
+    fused_mlp.chain_fwd.launches = fused_mlp.chain_bwd.launches = 0
+    t0 = time.perf_counter()
+    _, (_, policy_params), s_ppo = run_ppo(True, PPO_SPRING_STEPS, environment=spring_ant,
+                                           preset="ant", network_factory=recorder.factory)
+    torch.cuda.synchronize()
+    s_ppo_s = time.perf_counter() - t0
+    s_launches = {"fused_mlp_fwd": fused_mlp.chain_fwd.launches,
+                  "fused_mlp_bwd": fused_mlp.chain_bwd.launches,
+                  "pbd_step": kernels.pbd_step_launch.launches}
+    moved = check_ppo_run("PPO spring ant", s_ppo, recorder, policy_params, s_launches, want_s)
+    widths = (recorder.initial["policy"]["hidden_0.kernel"].shape[0],
+              recorder.initial["policy"]["hidden_4.kernel"].shape[1])
+    if widths != (87, 16):
+        raise AssertionError(f"the spring ant policy maps {widths[0]} inputs to {widths[1]}")
+    print(f"main path PPO spring ant: {PPO_SPRING_STEPS} training steps at the ant recipe "
+          f"(num_envs {p_s['num_envs']}, batch {p_s['batch_size']} x "
+          f"{p_s['num_minibatches']} minibatches, unroll {p_s['unroll_length']}, "
+          f"{p_s['num_updates_per_batch']} updates) on envs.create_fn(\"ant\", "
+          f"legacy_spring=True) + one eval of {PPO_EVAL_ENVS} envs in {s_ppo_s:.1f} s; "
+          f"launches {s_launches} (as expected; per training step {per_step_s}); total_loss "
+          f"{s_ppo['training/total_loss']:.5g}, eval/episode_reward "
+          f"{s_ppo['eval/episode_reward']:.5g}; every parameter moved (smallest max change "
+          f"{moved:.3e})")
+    print(f"timing {tag}: PPO spring ant training env-steps/s over step 2 (host clock, fused_mlp "
+          f"on): {s_ppo['training/sps_after_first']:.1f}")
+    return {"scene": s_scene, "main": s_main, "launches": s_launches, "ppo": s_ppo,
+            "per_step": per_step_s, "seconds": s_ppo_s}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -1623,6 +1785,7 @@ def main():
               for name in GRASP_ENV_STEPS}
     b_envs = {name: envs.create(name, episode_length=1000, batch_size=N_ENVS)
               for name in FETCH_ENV_STEPS}
+    s_envs = {name: spring_env(name, N_ENVS, device) for name in SPRING_SCENES}
     built = cuda_build.build(kernels.kernel_source(sys_), fused_mlp.SOURCE, probe.SOURCE,
                              *(kernels.kernel_source(e.sys) for e in h_envs.values()),
                              *(kernels.kernel_source(e.sys) for e in c_envs.values()),
@@ -1632,6 +1795,8 @@ def main():
                              kernels.kernel_source(one_pass(g_envs["grasp"].sys)),
                              *(kernels.kernel_source(e.sys) for e in b_envs.values()),
                              *(kernels.kernel_source(one_pass(e.sys)) for e in b_envs.values()),
+                             *(kernels.kernel_source(e.sys) for e in s_envs.values()),
+                             *(kernels.kernel_source(one_pass(e.sys)) for e in s_envs.values()),
                              kernels.kernel_source(twister_swimmer(device)),
                              *(gen_kernels.kernel_source(s) for s in scenes))
     print(f"build: {', '.join(p.name for p in built.values())} in "
@@ -1640,6 +1805,11 @@ def main():
     for e in (*h_envs.values(), *c_envs.values(), *f_envs.values(), *g_envs.values(),
               *b_envs.values()):
         print(kernels.ptxas_report(e.sys).strip())
+    for name, e in s_envs.items():
+        for label, s_ in (("", e.sys), (" one substep", one_pass(e.sys))):
+            print(f"{name} (legacy spring){label}: " + " ".join(
+                line.strip() for line in kernels.ptxas_report(s_).splitlines()
+                if "registers" in line or "spill" in line))
     print(fused_mlp.ptxas_report().strip())
     print(probe.ptxas_report().strip())
     for scene in scenes:
@@ -1655,6 +1825,8 @@ def main():
                 for name, e in g_envs.items()}
     b_launch = {name: pbd_launch_report(e.sys, PBD_TIMING_ENVS, name)
                 for name, e in b_envs.items()}
+    s_launch = {name: pbd_launch_report(e.sys, PBD_TIMING_ENVS, f"{name} (legacy spring)")
+                for name, e in s_envs.items()}
     hgmma = cuda_build.sass_count(built[probe.SOURCE], "HGMMA")
     print(f"probe dot_chain build: {hgmma} HGMMA (wgmma) instructions in "
           f"{built[probe.SOURCE].name} (cuobjdump --dump-sass)")
@@ -1800,6 +1972,8 @@ def main():
     g_scene, g_main, g_launches = g["scene"], g["main"], g["launches"]
     fe = fetch_paths(tag, phase, b_envs, checks, fused_plans, times, bounds)
     b_scene, b_main, b_launches = fe["scene"], fe["main"], fe["launches"]
+    sp_ = spring_paths(tag, phase, s_envs)
+    s_scene, s_main, s_launches = sp_["scene"], sp_["main"], sp_["launches"]
 
     def fused_entry(kind, replaces, function):
         main = ("value", 5120, "bf16")
@@ -1817,6 +1991,7 @@ def main():
                                  "PPO v1 halfcheetah": c_launches[f"fused_mlp_{kind}"],
                                  "PPO grasp": g_launches[f"fused_mlp_{kind}"],
                                  "PPO fetch": b_launches[f"fused_mlp_{kind}"],
+                                 "PPO spring ant": s_launches[f"fused_mlp_{kind}"],
                                  "probe": probe_launches.get(f"fused_mlp_{kind}", 0)},
             "launches_per_training_step": per_step_launches[kind],
             "max_abs_err": max(c[kind]["max_abs_err"] for k, c in checks.items()
@@ -2098,6 +2273,11 @@ def main():
                   "total_loss": fe["ppo"]["training/total_loss"], "launches": b_launches,
                   "launches_per_training_step": fe["per_step"], "seconds": fe["seconds"],
                   "fused_ms_per_training_step": fe["fused_ms"]},
+        "spring_ant": {"env_steps_per_s_fused_on": sp_["ppo"]["training/sps_after_first"],
+                       "eval_episode_reward": sp_["ppo"]["eval/episode_reward"],
+                       "total_loss": sp_["ppo"]["training/total_loss"], "launches": s_launches,
+                       "launches_per_training_step": sp_["per_step"],
+                       "seconds": sp_["seconds"]},
         "card": name_limit}}))
     print(json.dumps({"kernels": [{
         "name": "pbd_step",
@@ -2108,11 +2288,12 @@ def main():
         "launches": launches,
         "max_abs_err": max([*errs.values()] + [
             e for r in (*h_scene.values(), *c_scene.values(), *f_scene.values(),
-                        *g_scene.values(), *b_scene.values())
+                        *g_scene.values(), *b_scene.values(), *s_scene.values())
             for ck in r["checks"].values()
             if ck.get("rule", "max_errors") == "max_errors"
             for e in ck["max_abs_err_by_field"].values()] + [
-            e for r in (*c_scene.values(), g_scene["grasp"], *b_scene.values())
+            e for r in (*c_scene.values(), g_scene["grasp"], *b_scene.values(),
+                        *s_scene.values())
             for ck in r["checks"].values()
             if ck["one_pass"]["rule"] == "max_errors"
             for e in ck["one_pass"]["max_abs_err_by_field"].values()] + [
@@ -2149,7 +2330,10 @@ def main():
                              **{f"{name} env.step": r["launches"] for name, r in g_main.items()},
                              "PPO grasp": g_launches["pbd_step"],
                              **{f"{name} env.step": r["launches"] for name, r in b_main.items()},
-                             "PPO fetch": b_launches["pbd_step"]},
+                             "PPO fetch": b_launches["pbd_step"],
+                             **{f"{name} (legacy spring) {'sys' if 'sys_step_ms' in r else 'env'}"
+                                f".step": r["launches"] for name, r in s_main.items()},
+                             "PPO spring ant": s_launches["pbd_step"]},
         "by_scene": {
             "ant": {"ms": kernel_ms, "ms_host_issued": pbd_by_envs[N_ENVS]["host"],
                     "ms_by_envs": pbd_by_envs, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2192,6 +2376,13 @@ def main():
                       "main_path": b_main[name],
                       "launches_ppo": b_launches["pbd_step"] if name == "fetch" else None}
                for name, r in b_scene.items()},
+            **{f"{name} (legacy spring)": {
+                "ms": r["ms_by_envs"][N_ENVS]["graph"],
+                "ms_host_issued": r["ms_by_envs"][N_ENVS]["host"],
+                "ms_by_envs": r["ms_by_envs"], "plain_ms": r["plain_ms"], **r["bound"],
+                "checks": r["checks"], "launch": s_launch[name], "main_path": s_main[name],
+                "launches_ppo": s_launches["pbd_step"] if name == "ant" else None}
+               for name, r in s_scene.items()},
             "swimmer_twister": {"checks": {STATES[1]: g["twister"]}},
         },
         "card": name_limit,

@@ -24,6 +24,7 @@ reacher (17), after 10 twin steps; and grasp (17 envs) from a reset and
 with its claw closed on the ball (`pbd_parity.grasp_states`).
 """
 
+import hashlib
 import shutil
 import subprocess
 import tempfile
@@ -102,21 +103,33 @@ def compiler():
     return shutil.which("g++") or shutil.which("clang++")
 
 
+def executable(text: str) -> Path:
+    """The emulation program of `text` (a scene header and pbd_step.cu),
+    compiled once: kept under the build directory, named by the hash of
+    what it compiles."""
+    text = text.replace("#include <cuda_runtime.h>\n", "")
+    text = SHIM + text[:text.index('extern "C" {')] + MAIN
+    exe = kernels.BUILD_DIR / "emulated" / (
+        "pbd_step_" + hashlib.sha256(text.encode()).hexdigest()[:16])
+    if not exe.exists():
+        exe.parent.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=exe.parent) as tmp:
+            src, out = Path(tmp) / "pbd_step_emulated.cpp", Path(tmp) / exe.name
+            src.write_text(text)
+            subprocess.run([compiler(), "-O1", "-std=c++20", "-pthread", "-o", str(out),
+                            str(src)], check=True, capture_output=True)
+            out.replace(exe)
+    return exe
+
+
 def emulate(sys, qp, act, source=None):
     """The kernel's outputs (pos, rot, vel, ang, contact vel, contact ang),
     each (N, nb, C), for CPU inputs qp and act; `source` is the text of
     pbd_step.cu to compile (default: the package's)."""
-    text = kernels.scene_header(sys) + (source or kernels.SOURCE.read_text())
-    text = text.replace("#include <cuda_runtime.h>\n", "")
-    text = SHIM + text[:text.index('extern "C" {')] + MAIN
+    exe = executable(kernels.scene_header(sys) + (source or kernels.SOURCE.read_text()))
     n, n_act, nb = qp.pos.shape[0], act.shape[1], sys.num_bodies
-    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
         work = Path(tmp)
-        src, exe = work / "pbd_step_emulated.cpp", work / "pbd_step_emulated"
-        src.write_text(text)
-        subprocess.run([compiler(), "-O1", "-std=c++20", "-pthread", "-o", str(exe), str(src)],
-                       check=True, capture_output=True)
         with open(work / "in.bin", "wb") as f:
             for t in (qp.pos, qp.rot, qp.vel, qp.ang, act):
                 f.write(t.contiguous().numpy().astype(np.float32).tobytes())

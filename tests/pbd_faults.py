@@ -42,7 +42,18 @@ code, made in a copy under the build directory:
 - `first_corner_only`: each body gathers only the first contact of its
   list (a lower leg its box's first corner);
 - `box_two_way_sinking`: a box corner's lane restitutes by the two-way
-  branch's test, v_n_old <= 0, not v_n_old <= -vel_threshold.
+  branch's test, v_n_old <= 0, not v_n_old <= -vel_threshold;
+- `spring_hinge_sign`: a legacy-spring revolute joint's stiffness turns
+  its child's hinge axis away from the parent's, not toward it;
+- `universal_torque_sign`: a legacy-spring universal joint's torque that
+  holds the child's y axis normal to the parent's x axis takes the other
+  sign;
+- `spring_count_all_groups`: a legacy-spring contact impulse is averaged
+  over the non-zero impulses of its body in its group and in the groups
+  before it, not in its group alone (halfcheetah's feet: the floor's group,
+  then the feet's capsule-capsule pair);
+- `spring_forces_twice`: a legacy-spring body adds its thrusters' and
+  twisters' velocity changes twice.
 
 `b_mass` and `no_friction` are planted in halfcheetah only: pusher's
 capsule-capsule pairs have masses and inverse inertias of 1 on both sides
@@ -56,7 +67,11 @@ column taken from every actuator but the first) and `twister_sign` in
 `swimmer_twister` (swimmer with its torso's thruster made a twister):
 Systems made for them (`pbd_parity.padded_grasp`, `oneway_pusher`,
 `twister_swimmer`), as no default scene has what they change.  The box
-faults are planted in fetch, from its states (`pbd_parity.fetch_states`).
+faults are planted in fetch, from its states (`pbd_parity.fetch_states`);
+the legacy-spring faults in the spring Systems of ant, humanoid_legacy,
+halfcheetah (from its feet together, `pbd_parity.capcap_state`, where both
+of a foot's groups act) and inverted_pendulum, named "<env>_spring", from
+`pbd_parity.spring_states`.
 
 On the card,
 
@@ -134,6 +149,15 @@ FAULTS = {
                           "l.con[g][k] = k == 0 ? __ldg(&BODY_CON[g][k][i]) : -1;"),
     "box_two_way_sinking": ("float sinking = v_n_old <= -vel_threshold ? 1.0f : 0.0f;",
                             "float sinking = v_n_old <= 0.0f ? 1.0f : 0.0f;"),
+    "spring_hinge_sign": ("tq = vcross(a_p0, rotate(j.axis_c0, rot_c)) * j.stiffness;",
+                          "tq = vcross(rotate(j.axis_c0, rot_c), a_p0) * j.stiffness;"),
+    "universal_torque_sign": ("tq = vcross(proj, a_c1) * div_rn(j.limit_strength, 5.0f);",
+                              "tq = vcross(a_c1, proj) * div_rn(j.limit_strength, 5.0f);"),
+    "spring_count_all_groups": ("    count = 0.0f;  // each (group, body) its own average\n",
+                                "    if (g == 0) count = 0.0f;\n"),
+    "spring_forces_twice": ("  dang_a = dang_a + bc.fang;\n  dvel = dvel + bc.fvel;",
+                            "  dang_a = dang_a + bc.fang + bc.fang;\n"
+                            "  dvel = dvel + bc.fvel + bc.fvel;"),
 }
 # the scenes a fault changes anything in
 FAULT_SCENES = {"b_sign": ("halfcheetah", "pusher"), "no_b_gather": ("halfcheetah", "pusher"),
@@ -147,7 +171,11 @@ FAULT_SCENES = {"b_sign": ("halfcheetah", "pusher"), "no_b_gather": ("halfcheeta
                 "oneway_static_friction": ("pusher_oneway",),
                 "spherical_angle_sign": ("grasp",), "padded_reads_column_0": ("grasp_padded",),
                 "corner_radius": ("fetch",), "average_by_kg": ("fetch",),
-                "first_corner_only": ("fetch",), "box_two_way_sinking": ("fetch",)}
+                "first_corner_only": ("fetch",), "box_two_way_sinking": ("fetch",),
+                "spring_hinge_sign": ("ant_spring",),
+                "universal_torque_sign": ("humanoid_legacy_spring",),
+                "spring_count_all_groups": ("halfcheetah_spring",),
+                "spring_forces_twice": ("inverted_pendulum_spring",)}
 CAPCAP_SCENES = ("halfcheetah", "pusher")
 FORCE_SCENES = ("inverted_pendulum", "inverted_double_pendulum", "swimmer", "reacherangle")
 GRASP_SCENES = ("grasp", "grasp_padded")
@@ -156,8 +184,34 @@ GRASP_SCENES = ("grasp", "grasp_padded")
 MADE_SCENES = {"grasp_padded": ("grasp", pp.padded_grasp),
                "pusher_oneway": ("pusher", pp.oneway_pusher),
                "swimmer_twister": ("swimmer", lambda s: pp.twister_swimmer(s.mass.device))}
-SCENES = CAPCAP_SCENES + FORCE_SCENES + ("grasp", "fetch") + tuple(MADE_SCENES)
+# the legacy-spring Systems the spring faults are planted in
+SPRING_FAULT_SCENES = ("ant_spring", "humanoid_legacy_spring", "halfcheetah_spring",
+                       "inverted_pendulum_spring")
+SCENES = (CAPCAP_SCENES + FORCE_SCENES + ("grasp", "fetch") + tuple(MADE_SCENES)
+          + SPRING_FAULT_SCENES)
 N = 4096
+
+
+def scene_env(name, n, device):
+    """The env of scene `name`: a spring one's ("<env>_spring") made with
+    legacy_spring=True, a made scene's the registered one it is made from."""
+    from brax_torch import envs
+
+    if name.endswith("_spring"):
+        return pp.spring_env(name[:-len("_spring")], n, device)
+    return envs.create(MADE_SCENES.get(name, (name,))[0], episode_length=1000, batch_size=n,
+                       device=device)
+
+
+def spring_states(name, env, n, device, sys_=None):
+    """A spring scene's states (`pbd_parity.spring_states`); halfcheetah's
+    with its feet together in place of its reset (`pbd_parity.capcap_state`
+    on the spring env), where both of a foot's contact groups act."""
+    base = name[:-len("_spring")]
+    out = pp.spring_states(base, env, n, 0, device, sys_)
+    if base == "halfcheetah":
+        out[pp.SPRING_STATES[0]] = pp.capcap_state(base, env, n, 1, device)
+    return out
 
 
 def scene_system(name, env):
@@ -210,6 +264,8 @@ def states(name, env, device, sys_=None):
     `env` is the registered scene's (for a
     made scene, the one it is made from), whose twin steps run on `sys_`
     (default: env.sys)."""
+    if name.endswith("_spring"):
+        return spring_states(name, env, N, device, sys_)
     base = MADE_SCENES[name][0] if name in MADE_SCENES else name
     if base == "grasp":
         return pp.grasp_states(env.unwrapped, N, 0, device)
@@ -280,7 +336,7 @@ def pallas_math(name="halfcheetah"):
 def main(argv):
     if argv[:1] == ["--pallas-math"]:
         return pallas_math()
-    from brax_torch import cuda_build, envs
+    from brax_torch import cuda_build
     from brax_torch.tools import pbd_turns
 
     if not torch.cuda.is_available():
@@ -288,9 +344,7 @@ def main(argv):
     device = torch.device("cuda")
     card = cuda_build.card()
     print(card)
-    scenes = {name: envs.create(MADE_SCENES.get(name, (name,))[0], episode_length=1000,
-                                batch_size=N)
-              for name in (argv or SCENES)}
+    scenes = {name: scene_env(name, N, device) for name in (argv or SCENES)}
     whole = {name: scene_system(name, e) for name, e in scenes.items()}
     systems = {(name, pass_): (pp.one_pass(whole[name]) if pass_ == "one pass" else whole[name])
                for name in scenes for pass_ in ("one pass", "whole step")}
@@ -305,8 +359,9 @@ def main(argv):
         for state, (qp, act) in states(name, env, device, whole[name]).items():
             for pass_ in ("one pass", "whole step"):
                 sys_ = systems[name, pass_]
-                # the chaos rule's readings for the chaotic capsule-capsule scenes
-                chaotic = name in CAPCAP_SCENES + ("pusher_oneway",)
+                # the chaos rule's readings for the chaotic capsule-capsule and
+                # spring scenes
+                chaotic = name in CAPCAP_SCENES + ("pusher_oneway",) + SPRING_FAULT_SCENES
                 spread = pp.twin_spread(sys_, qp, act) if chaotic else None
                 own = pp.twin_own_outside(sys_, qp, act, gen) if chaotic else None
                 kernels_ = {"kernel": kernels.pbd_step,

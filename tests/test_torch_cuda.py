@@ -622,6 +622,137 @@ def test_box_plane_and_walker_scenes_compile_no_section(cuda, name):
 
 
 # ---------------------------------------------------------------------------
+# legacy spring (PBD_SPRING): the eight envs legacy_spring=True switches
+# ---------------------------------------------------------------------------
+
+SPRING_SCENES = ("ant", "halfcheetah", "humanoid_legacy", "humanoidstandup", "inverted_pendulum",
+                 "inverted_double_pendulum", "reacher", "reacherangle")
+# the earlier Systems (tests/test_torch_pbd_launch.py's scenes, grasp,
+# acrobot, ur5e, fetch, hopper, walker2d)
+EARLIER_SCENES = ("ant", "two_legged_ant", "humanoid", "humanoidstandup", "halfcheetah",
+                  "pusher", "inverted_pendulum", "inverted_double_pendulum", "swimmer",
+                  "reacherangle", "reacher", "grasp", "acrobot", "ur5e", "fetch", "hopper",
+                  "walker2d")
+
+
+@pytest.fixture(scope="module")
+def spring_built():
+    """Every spring System's kernel and its one-substep kernel, built in
+    parallel (one nvcc each) before the tests that launch them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel runs only there")
+    from brax_torch.tools import pbd_parity
+
+    systems = [pbd_parity.spring_env(name, 1, "cuda").sys for name in SPRING_SCENES]
+    cuda_build.build(*(kernels.kernel_source(s) for s in systems),
+                     *(kernels.kernel_source(pbd_parity.one_pass(s)) for s in systems))
+
+
+@pytest.mark.parametrize("name", SPRING_SCENES)
+@pytest.mark.parametrize("n", [1, 2, 4097])
+def test_spring_kernel_matches_twin_by_batch(cuda, spring_built, name, n):
+    """Each spring System from a reset and 10 twin steps after it
+    (pbd_parity.spring_states), over one substep and over the whole step,
+    by the rules chip_smoke.py holds it to (pbd_parity.RULES, "<env>_spring"),
+    on ragged batches (a warp's last env copied), one launch each."""
+    from brax_torch.tools import pbd_parity
+
+    env = pbd_parity.spring_env(name, n, cuda)
+    assert kernels.plan(env.sys).spring and kernels.unsupported_features(env.sys) == []
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for state, (qp, act) in pbd_parity.spring_states(name, env, n, 0, cuda).items():
+        before = kernels.pbd_step_launch.launches
+        pbd_parity.hold_capcap(f"{name}_spring", state, env.sys, qp, act, gen,
+                               f"{name} spring {state} ")
+        assert kernels.pbd_step_launch.launches == before + 2
+
+
+def test_spring_kernel_gives_the_same_bits_twice_and_from_a_graph(cuda, spring_built):
+    from brax_torch.tools import pbd_parity
+
+    env = pbd_parity.spring_env("humanoid_legacy", 1024, cuda)
+    qp, act = pbd_parity.spring_states("humanoid_legacy", env, 1024, 0, cuda)[
+        pbd_parity.SPRING_STATES[1]]
+    want, info_want = kernels.pbd_step(env.sys, qp, act)
+    again, info_again = kernels.pbd_step(env.sys, qp, act)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernels.pbd_step(env.sys, qp, act)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, info_got = kernels.pbd_step(env.sys, qp, act)
+    got.vel.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    fields = lambda q, i: (q.pos, q.rot, q.vel, q.ang, i.contact.vel, i.contact.ang)
+    for x, y, z in zip(fields(want, info_want), fields(again, info_again),
+                       fields(got, info_got)):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+def test_spring_env_step_launches_the_kernel_once(cuda, spring_built):
+    """envs.create(name, legacy_spring=True) steps with one launch per
+    env.step; inverted_double_pendulum's env cannot reset (nor can the
+    JAX one), and its System steps with one launch per sys.step."""
+    from brax_torch import envs
+
+    obs = {"ant": 87, "halfcheetah": 18, "humanoid_legacy": 227, "humanoidstandup": 227,
+           "inverted_pendulum": 4, "reacher": 11, "reacherangle": 11}
+    for name, width in obs.items():
+        env = envs.create(name, batch_size=64, legacy_spring=True)
+        assert env.sys.dynamics_mode == "legacy_spring"
+        state = env.reset(torch.Generator(device=cuda).manual_seed(0))
+        before = kernels.pbd_step_launch.launches
+        for _ in range(3):
+            state = env.step(state, torch.rand((64, env.action_size), device=cuda) * 2 - 1)
+        assert kernels.pbd_step_launch.launches == before + 3
+        assert state.obs.shape == (64, width) and bool(torch.isfinite(state.obs).all())
+    env = envs.create("inverted_double_pendulum", batch_size=64, legacy_spring=True)
+    with pytest.raises(RuntimeError, match="must match the size"):
+        env.reset(torch.Generator(device=cuda).manual_seed(0))
+    zero = torch.zeros((64, 0), device=cuda)
+    qp = env.unwrapped.default_qp(joint_angle=zero, joint_velocity=zero)
+    before = kernels.pbd_step_launch.launches
+    out, _ = env.sys.step(qp, torch.rand((64, 1), device=cuda) * 2 - 1)
+    assert kernels.pbd_step_launch.launches == before + 1 and bool(torch.isfinite(out.pos).all())
+
+
+@pytest.fixture(scope="module")
+def earlier_cut_sources():
+    """{scene: (source, source with every PBD_SPRING block cut out)} of the
+    earlier Systems, both built in parallel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel runs only there")
+    from brax_torch.envs import Acrobot, Fetch, Grasp, Hopper, Ur5e, Walker2d
+    from tests.test_torch_pbd_launch import _system
+
+    made = {"grasp": Grasp, "acrobot": Acrobot, "ur5e": Ur5e, "fetch": Fetch, "hopper": Hopper,
+            "walker2d": Walker2d}
+    pairs = {}
+    for name in EARLIER_SCENES:
+        sys_ = made[name](batch_size=1, device="cpu").sys if name in made else _system(name)
+        whole = kernels.kernel_source(sys_)
+        cut = whole.with_name(whole.stem + "_without_spring.cu")
+        cut.write_text(_without_blocks(whole.read_text(), ("PBD_SPRING",)))
+        pairs[name] = (whole, cut)
+    cuda_build.build(*(p for pair in pairs.values() for p in pair))
+    return pairs
+
+
+@pytest.mark.parametrize("name", EARLIER_SCENES)
+def test_earlier_scenes_compile_as_without_the_spring_section(cuda, earlier_cut_sources, name):
+    """Each earlier System's kernel holds none of the legacy-spring section:
+    its SASS equals that of a build whose source has every PBD_SPRING block
+    cut out (the parent's bits and speed: python -m
+    brax_torch.tools.pbd_turns)."""
+    whole, cut = earlier_cut_sources[name]
+    assert "#ifdef PBD_SPRING" in whole.read_text() and "#ifdef PBD_SPRING" not in cut.read_text()
+    assert _sass(whole) == _sass(cut) != []
+
+
+# ---------------------------------------------------------------------------
 # fused MLP kernels
 # ---------------------------------------------------------------------------
 

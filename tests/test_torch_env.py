@@ -35,10 +35,19 @@ def test_create_builds_the_wrapper_stack():
 
 
 def test_create_names_envs_not_ported():
-    """Every env of the JAX registry is ported; a config that is not (ant's
-    legacy spring) raises, naming its queue."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        envs.create("ant", device="cpu", legacy_spring=True)
+    """Every env of the JAX registry is ported, and so is every config one
+    switches to (ant's legacy spring: its eight spring revolute joints, a
+    System the CUDA kernel covers, stepped here by the twin); a name the
+    registry lacks raises, naming what it has."""
+    from brax_torch.sim import kernels
+
+    env = envs.create("ant", batch_size=2, device="cpu", legacy_spring=True)
+    assert [(g.kind, g.n) for g in env.sys.joint_groups] == [("spring_revolute", 8)]
+    assert env.sys.dynamics_mode == "legacy_spring" and kernels.unsupported_features(env.sys) == []
+    state = env.step(env.reset(torch.Generator().manual_seed(0)), torch.zeros((2, 8)))
+    assert state.obs.shape == (2, 87) and bool(torch.isfinite(state.obs).all())
+    with pytest.raises(NotImplementedError, match="not registered"):
+        envs.create("ant_spring", device="cpu")
 
 
 def test_reset_draws_its_noise_from_the_generator():

@@ -14,6 +14,7 @@ tests/test_torch_forces_envs.py, the kernel's lane logic by
 tests/test_torch_forces_emulation.py and tests/test_torch_forces_faults.py.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -144,14 +145,34 @@ def test_padded_action_steps_as_the_clip():
 
 
 def test_unported_groups_still_raise():
-    """The legacy-spring variants of these scenes are not ported: the
-    builder and the env classes raise NotImplementedError naming them."""
+    """The legacy-spring variants of these scenes are ported: the builder
+    makes the JAX package's System leaf for leaf (spring revolute joints,
+    the thruster and the angle actuators on them), the CUDA kernel covers
+    it, and the envs switch to it; what still raises is a spring System
+    with two actuators on one joint."""
+    from brax_tpu.envs.assets import inverted_double_pendulum as jax_idp_assets
+    from brax_tpu.envs.assets import inverted_pendulum as jax_ip_assets
+    from brax_tpu.envs.assets import reacher as jax_reacher_assets
+    from brax_tpu.envs.assets import reacherangle as jax_reacherangle_assets
     from brax_torch import envs
 
-    for config in (inverted_pendulum_config_spring, inverted_double_pendulum_config_spring,
-                   reacherangle_config_spring, reacher_config_spring):
-        with pytest.raises(NotImplementedError, match="legacy_spring"):
-            builder.build(config(), device="cpu")
+    for config, jax_config in (
+            (inverted_pendulum_config_spring, jax_ip_assets.inverted_pendulum_config_spring),
+            (inverted_double_pendulum_config_spring,
+             jax_idp_assets.inverted_double_pendulum_config_spring),
+            (reacherangle_config_spring, jax_reacherangle_assets.reacherangle_config_spring),
+            (reacher_config_spring, jax_reacher_assets.reacher_config_spring)):
+        sys = builder.build(config(), device="cpu")[0]
+        want = flatten(jax_builder.build(jax_config())[0])
+        got = flatten(sys)
+        assert sorted(got) == sorted(want)
+        for key, w in want.items():
+            np.testing.assert_array_equal(np.asarray(got[key]), np.asarray(w), err_msg=key)
+        assert {g.kind for g in sys.joint_groups} == {"spring_revolute"}
+        assert kernels.unsupported_features(sys) == []
     for name in ("inverted_pendulum", "inverted_double_pendulum", "reacherangle", "reacher"):
-        with pytest.raises(NotImplementedError, match="legacy_spring"):
-            envs.create(name, batch_size=2, device="cpu", legacy_spring=True)
+        env = envs.create(name, batch_size=2, device="cpu", legacy_spring=True)
+        assert env.sys.dynamics_mode == "legacy_spring"
+    sys = builder.build(reacher_config_spring(), device="cpu")[0]
+    twice = dataclasses.replace(sys, actuator_groups=sys.actuator_groups * 2)
+    assert kernels.unsupported_features(twice) == ["two actuators on one spring joint"]

@@ -196,10 +196,23 @@ def test_build_matches_jax(name):
 
 
 def test_legacy_spring_still_raises():
-    with pytest.raises(NotImplementedError, match="legacy_spring"):
-        builder.build(halfcheetah_config_spring(), device="cpu")
-    with pytest.raises(NotImplementedError, match="legacy_spring"):
-        Halfcheetah(legacy_spring=True, device="cpu")
+    """halfcheetah's legacy-spring scene is ported: the builder makes the
+    JAX package's System leaf for leaf (six spring revolute joints, damped
+    by 0.5 sqrt(stiffness), the one-way capsule-plane and two-way
+    capsule-capsule groups), the CUDA kernel covers it and the env switches
+    to it; what still raises is its capsule-plane group made two-way."""
+    from brax_tpu.envs.assets.half_cheetah import (
+        halfcheetah_config_spring as jax_halfcheetah_config_spring)
+
+    sys, _ = builder.build(halfcheetah_config_spring(), device="cpu")
+    _assert_tables_equal(flatten(sys), flatten(jax_builder.build(
+        jax_halfcheetah_config_spring())[0]))
+    assert kernels.unsupported_features(sys) == []
+    assert Halfcheetah(legacy_spring=True, device="cpu").sys.dynamics_mode == "legacy_spring"
+    plane = sys.contact_groups[0]
+    two_way = dataclasses.replace(plane, com=dataclasses.replace(plane.com, one_way=False))
+    other = dataclasses.replace(sys, contact_groups=(two_way,) + sys.contact_groups[1:])
+    assert kernels.unsupported_features(other) == ["two-way CapsulePlane contacts"]
 
 
 def _segments():

@@ -16,6 +16,7 @@ own.  The kernel itself is held to the twin by tests/test_torch_pbd_launch.py
 """
 
 import copy
+import dataclasses
 import functools
 
 import jax
@@ -153,11 +154,28 @@ def test_build_matches_jax(name):
 
 
 def test_spring_modes_still_raise():
-    with pytest.raises(NotImplementedError, match="legacy_spring"):
-        builder.build(humanoid_config_spring(), device="cpu")
+    """The humanoids' legacy-spring scenes are ported: the builder makes the
+    JAX package's System leaf for leaf (spring revolute, universal and
+    spherical groups, unpadded), the CUDA kernel covers the three kinds in
+    one System, and HumanoidLegacy and HumanoidStandup switch to them;
+    what still raises is a PBD System of revolute and spherical groups."""
+    from brax_tpu.envs.assets.humanoid import humanoid_config_spring as jax_config_spring
+
+    sys, _ = builder.build(humanoid_config_spring(), device="cpu")
+    want = flatten(jax_builder.build(jax_config_spring())[0])
+    got = flatten(sys)
+    assert sorted(got) == sorted(want)
+    for key, w in want.items():
+        np.testing.assert_array_equal(np.asarray(got[key]), np.asarray(w), err_msg=key)
+    assert [g.kind for g in sys.joint_groups] == [
+        "spring_revolute", "spring_universal", "spring_spherical"]
+    assert kernels.unsupported_features(sys) == []
     for cls in (HumanoidLegacy, HumanoidStandup):
-        with pytest.raises(NotImplementedError, match="legacy_spring"):
-            cls(legacy_spring=True, device="cpu")
+        assert cls(legacy_spring=True, device="cpu").sys.dynamics_mode == "legacy_spring"
+    pbd = builder.build(humanoid_config(), device="cpu")[0]
+    revolute = dataclasses.replace(pbd.joint_groups[0], kind="revolute")
+    mixed = dataclasses.replace(pbd, joint_groups=pbd.joint_groups + (revolute,))
+    assert kernels.unsupported_features(mixed) == ["revolute and spherical joints in one System"]
 
 
 def test_default_qp_matches_jax():

@@ -372,7 +372,7 @@ def test_source_path_per_system():
 @pytest.mark.parametrize("change,want", [
     ({}, []),
     ({"collider_cutoff": 4}, ["collider_cutoff"]),
-    ({"dynamics_mode": "legacy_spring"}, ["dynamics_mode='legacy_spring'"]),
+    ({"dynamics_mode": "legacy_spring"}, ["revolute joints in legacy spring"]),
     ({"scene": "humanoid"}, []),
     ({"scene": "humanoid", "actuator_kind": "angle"}, []),
     ({"scene": "swimmer"}, []),
@@ -398,7 +398,9 @@ def test_unsupported_features_unchanged(change, want):
     (on revolute and, as grasp's, on spherical joints) are covered
     (humanoid's, halfcheetah's, pusher's, swimmer's, inverted_pendulum's
     and reacherangle's Systems miss nothing), and up to 64 action columns
-    (grasp's 39); a spring kind, a System that mixes revolute and
+    (grasp's 39); a spring kind in a PBD System, a PBD kind in a
+    legacy-spring one (the legacy-spring Systems are covered,
+    tests/test_torch_spring_kernel.py), a System that mixes revolute and
     spherical groups (which `builder.build` never makes), a two-way
     capsule-plane group and a group of a class the kernel does not know (a
     stand-in named BoxPlane; the real one-way BoxPlane is covered, fetch's,

@@ -77,11 +77,24 @@ def test_build_raises_on_features_not_ported():
     out, _ = kernels.pbd_step_plain(sys, qp, torch.zeros((1, art.action_size)))
     assert [g.kind for g in sys.joint_groups] == ["spherical"]
     assert bool(torch.isfinite(out.pos).all())
+    # legacy spring is built now: spring revolute joints that set neither
+    # are damped by 0.5 sqrt(stiffness), their limits held by the
+    # stiffness; collider culling still raises
     cfg = ant_config()
     cfg.dynamics_mode = "legacy_spring"
     for j in cfg.joints:
-        j.stiffness = 5000.0
-    with pytest.raises(NotImplementedError, match="legacy_spring"):
+        j.stiffness, j.spring_damping, j.limit_strength = 5000.0, None, None
+    sys, art = builder.build(cfg, device="cpu")
+    (g,) = sys.joint_groups
+    assert g.kind == "spring_revolute" and g.free_dofs is None
+    torch.testing.assert_close(g.spring_damping, torch.full((8,), 0.5 * 5000.0 ** 0.5))
+    torch.testing.assert_close(g.limit_strength, torch.full((8,), 5000.0))
+    qp = initial.default_qp(art, device="cpu")
+    out, _ = kernels.pbd_step_plain(sys, qp, torch.zeros((1, art.action_size)))
+    assert bool(torch.isfinite(out.pos).all())
+    cfg = ant_config()
+    cfg.collider_cutoff = 4
+    with pytest.raises(NotImplementedError, match="collider_cutoff"):
         builder.build(cfg, device="cpu")
 
 
