@@ -10,7 +10,8 @@ reacherangle (angle actuators), reacher, grasp (angle actuators on
 spherical joints, one-way capsule-capsule contacts against its frozen
 palm), acrobot, ur5e, fetch (one-way box-plane contacts of its lower legs)
 and the trainer test env fast.  `register` adds a factory under a name and
-`create_fn` binds `create`'s arguments, as in the JAX registry.
+`create_fn` binds `create`'s arguments, as in the JAX registry;
+`factory` turns a trainer's `environment` argument into a factory.
 `legacy_spring=True` switches ant, halfcheetah, humanoid_legacy,
 humanoidstandup, inverted_pendulum, inverted_double_pendulum, reacher and
 reacherangle to their legacy-spring scenes, as their JAX counterparts do;
@@ -21,7 +22,9 @@ too).
 from __future__ import annotations
 
 import functools
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
+
+import torch
 
 from brax_torch.envs import wrappers
 from brax_torch.envs.acrobot import Acrobot
@@ -100,3 +103,17 @@ def create(
 def create_fn(env_name: str, **kwargs) -> Callable[..., Env]:
     """`create` with env_name and kwargs bound."""
     return functools.partial(create, env_name, **kwargs)
+
+
+EnvFactory = Callable[[int, torch.device], Env]
+
+
+def factory(environment: Union[str, EnvFactory]) -> EnvFactory:
+    """A trainer's `environment`, an env name or a factory
+    `(batch_size, device) -> Env` of the unwrapped env, as a factory."""
+    if isinstance(environment, str):
+        if environment not in _envs:
+            raise NotImplementedError(f"env {environment!r} is not ported yet")
+        return lambda batch_size, device: _envs[environment](batch_size=batch_size,
+                                                             device=device)
+    return environment

@@ -42,6 +42,12 @@ def safe_norm(x: Tensor, dim: int = -1) -> Tensor:
     return torch.where(is_zero.squeeze(dim), torch.zeros_like(n), n)
 
 
+def jnp_abs(x: Tensor) -> Tensor:
+    """|x| with jnp.abs's gradient: 1 at x == 0, where torch.abs's is 0.
+    The same values (0 keeps its sign)."""
+    return torch.where(x >= 0, x, -x)
+
+
 class _SafeArccos(torch.autograd.Function):
     """arccos whose gradient clips its input to (-1, 1)."""
 
@@ -101,9 +107,11 @@ _ARCTAN_COEFFS = (
 
 
 def _arctan_poly(t: Tensor) -> Tensor:
-    """arctan(t); |t| > 1 reduces with atan(t) = sign(t) pi/2 - atan(1/t)."""
+    """arctan(t); |t| > 1 reduces with atan(t) = sign(t) pi/2 - atan(1/t).
+    1/t is taken only where |t| > 1: elsewhere a tiny t would make the
+    unused branch's gradient 0 x inf, NaN."""
     big = torch.abs(t) > 1.0
-    tt = torch.where(big, 1.0 / torch.where(t == 0, torch.ones_like(t), t), t)
+    tt = torch.where(big, 1.0 / torch.where(big, t, torch.ones_like(t)), t)
     z = tt * tt
     p = torch.full_like(t, _ARCTAN_COEFFS[0])
     for c in _ARCTAN_COEFFS[1:]:

@@ -6,7 +6,11 @@ replaces the Pallas kernel `_build_tile_step`.  On CPU tensors it runs
 `pbd_step_plain`, the same step written with the sim modules' torch
 functions (the counterpart of the JAX package's jnp `_pbd_step`, and of
 `_spring_step` for a legacy-spring System); on CUDA tensors it launches
-the kernel or raises, and never falls back to the twin.
+the kernel or raises, and never falls back to the twin.  Where autograd
+records the step, it runs through `PBDStep`, the counterpart of the JAX
+package's `_with_vjp`: the same forward, and a backward that runs the twin
+again from the saved inputs (the JAX backward is a `jax.vjp` of the jnp
+step, plain XLA).
 
 As the Pallas kernel bakes each System's constants in, the CUDA source is
 compiled once per System: `scene_header` writes the scene (counts,
@@ -856,16 +860,65 @@ def pbd_step_launch(sys: System, pos: Tensor, rot: Tensor, vel: Tensor, ang: Ten
 pbd_step_launch.launches = 0
 
 
+def _plain_outputs(sys: System, pos: Tensor, rot: Tensor, vel: Tensor, ang: Tensor,
+                   act: Tensor) -> Tuple[Tensor, ...]:
+    """`pbd_step_plain` on the launch's tensors: the launch's six outputs."""
+    qp, info = pbd_step_plain(sys, QP(pos=pos, rot=rot, vel=vel, ang=ang), act)
+    return qp.pos, qp.rot, qp.vel, qp.ang, info.contact.vel, info.contact.ang
+
+
+class PBDStep(torch.autograd.Function):
+    """The step made differentiable, the counterpart of the JAX package's
+    `_with_vjp`: the kernel forward (the twin on CPU tensors, run without
+    autograd), and a backward that runs the twin again from the saved
+    inputs under autograd and returns the gradients of its six outputs
+    (pos, rot, vel, ang and the contact impulses) for the incoming
+    cotangents.  The JAX backward is a `jax.vjp` of the jnp step, plain
+    XLA; this is its counterpart in plain torch.  Only the five inputs are
+    saved.  `backward_calls` counts the backward's runs of the twin."""
+
+    backward_calls = 0
+
+    @staticmethod
+    def forward(ctx, sys, pos, rot, vel, ang, act):
+        ctx.sys = sys
+        ctx.save_for_backward(pos, rot, vel, ang, act)
+        if pos.device.type == "cpu":
+            return _plain_outputs(sys, pos, rot, vel, ang, act)
+        return pbd_step_launch(sys, pos, rot, vel, ang, act)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *grads):
+        ins = [t.detach().requires_grad_(need)
+               for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[1:])]
+        wrt = [t for t in ins if t.requires_grad]
+        with torch.enable_grad(), torch.profiler.record_function("pbd_step/twin_backward"):
+            # a scene without contacts gives zero impulses that depend on nothing
+            pairs = [(o, g) for o, g in zip(_plain_outputs(ctx.sys, *ins), grads)
+                     if o.requires_grad]
+            dins = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                            allow_unused=True))
+        PBDStep.backward_calls += 1
+        return (None, *(next(dins) if t.requires_grad else None for t in ins))
+
+
 def pbd_step(sys: System, qp: QP, act: Tensor) -> Tuple[QP, Info]:
     """One PBD env step for the batch: the twin on CPU tensors, one kernel
     launch (`pbd_step_launch`) on CUDA tensors.
 
     qp holds (N, nb, 3/4) float32 tensors and act (N, n_act); the kernel
-    reads and writes that layout, so a step issues no transpose.
+    reads and writes that layout, so a step issues no transpose.  Where
+    autograd records the step (grad enabled and an input requiring grad),
+    it runs through `PBDStep` on either device, whose backward is the
+    twin's; otherwise nothing is saved.
     """
     tensors = (qp.pos, qp.rot, qp.vel, qp.ang, act)
-    if all(t.device.type == "cpu" for t in tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        outs = PBDStep.apply(sys, *(t.contiguous() for t in tensors))
+    elif all(t.device.type == "cpu" for t in tensors):
         return pbd_step_plain(sys, qp, act)
-    outs = pbd_step_launch(sys, *(t.contiguous() for t in tensors))
+    else:
+        outs = pbd_step_launch(sys, *(t.contiguous() for t in tensors))
     qp_out = QP(pos=outs[0], rot=outs[1], vel=outs[2], ang=outs[3])
     return qp_out, _kernel_info(DP(vel=outs[4], ang=outs[5]), qp.pos.shape[0], qp.pos.device)

@@ -18,6 +18,12 @@ from brax_torch.v2 import envs as v2_envs
 from brax_torch.training.types import Metrics, Policy, PolicyParams, Transition, tree_stack
 
 
+def sync(device: torch.device) -> None:
+    """Waits for the work queued on a CUDA device (nothing on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def actor_step(
     env: base.Env,
     env_state: base.State,

@@ -25,7 +25,6 @@ nothing unless a profiler is recording.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import time
 from typing import Callable, Optional, Union
@@ -40,35 +39,9 @@ from brax_torch.training import acting, fused_mlp, gradients, running_statistics
 from brax_torch.training.agents.ppo import losses as ppo_losses
 from brax_torch.training.agents.ppo import networks as ppo_networks
 
-EnvFactory = Callable[[int, torch.device], envs.Env]
-
-
-def _factory(environment: Union[str, EnvFactory]) -> EnvFactory:
-    if isinstance(environment, str):
-        if environment not in envs._envs:
-            raise NotImplementedError(f"env {environment!r} is not ported yet")
-        return lambda batch_size, device: envs._envs[environment](
-            batch_size=batch_size, device=device)
-    return environment
-
-
-@contextlib.contextmanager
-def _fused_mlp_enabled(on: bool):
-    prev = fused_mlp.enabled()
-    fused_mlp.enable(on)
-    try:
-        yield
-    finally:
-        fused_mlp.enable(prev)
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
 
 def train(
-    environment: Union[str, EnvFactory],
+    environment: Union[str, envs.EnvFactory],
     num_timesteps: int,
     episode_length: int,
     action_repeat: int = 1,
@@ -91,7 +64,7 @@ def train(
     network_factory=ppo_networks.make_ppo_networks,
     progress_fn: Callable[[int, types.Metrics], None] = lambda *args: None,
     normalize_advantage: bool = True,
-    eval_env: Optional[Union[str, EnvFactory]] = None,
+    eval_env: Optional[Union[str, envs.EnvFactory]] = None,
     use_fused_kernel: Optional[bool] = None,
     device="cuda",
 ):
@@ -106,18 +79,18 @@ def train(
     device = torch.device(device)
     if use_fused_kernel is None:
         use_fused_kernel = device.type == "cuda"
-    with _fused_mlp_enabled(bool(use_fused_kernel)):
+    with fused_mlp.enabled_as(bool(use_fused_kernel)):
         env_step_per_training_step = batch_size * unroll_length * num_minibatches * action_repeat
         num_evals_after_init = max(num_evals - 1, 1)
         num_training_steps_per_epoch = -(
             -num_timesteps // (num_evals_after_init * env_step_per_training_step))
         num_unrolls = batch_size * num_minibatches // num_envs
 
-        make_env = _factory(environment)
+        make_env = envs.factory(environment)
         env = wrappers.wrap_for_training_any(make_env(num_envs, device),
                                              episode_length=episode_length,
                                              action_repeat=action_repeat)
-        eval_factory = make_env if eval_env is None else _factory(eval_env)
+        eval_factory = make_env if eval_env is None else envs.factory(eval_env)
         eval_env = wrappers.wrap_for_training_any(eval_factory(num_eval_envs, device),
                                                   episode_length=episode_length,
                                                   action_repeat=action_repeat)
@@ -197,7 +170,7 @@ def train(
         current_step = 0
         training_walltime = 0.0
         for _ in range(num_evals_after_init):
-            _sync(device)
+            acting.sync(device)
             t = time.time()
             step_ends = []
             loss_metrics = []
@@ -205,7 +178,7 @@ def train(
                 with record_function("ppo/training_step"):
                     env_state, normalizer_params = training_step(env_state, normalizer_params,
                                                                  loss_metrics)
-                    _sync(device)
+                    acting.sync(device)
                 step_ends.append(time.time())
             means = {k: float(torch.stack([m[k] for m in loss_metrics]).mean())
                      for k in loss_metrics[0]}

@@ -32,6 +32,7 @@ its matmuls, as the TPU kernel's backward does; db sums the f32 gradient.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import List, Sequence, Tuple
@@ -68,6 +69,18 @@ def enable(on: bool) -> None:
 
 def enabled() -> bool:
     return _ENABLED
+
+
+@contextlib.contextmanager
+def enabled_as(on: bool):
+    """The fused kernels on or off inside the block, the previous setting
+    restored after it."""
+    prev = enabled()
+    enable(on)
+    try:
+        yield
+    finally:
+        enable(prev)
 
 
 # ---------------------------------------------------------------------------

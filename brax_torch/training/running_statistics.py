@@ -82,7 +82,9 @@ def update(
 
 def normalize(batch: Tensor, mean_std: RunningStatisticsState,
               max_abs_value: Optional[float] = None) -> Tensor:
-    """Normalizes data using running statistics."""
+    """Normalizes data using running statistics.  The gradient passes to
+    `batch`; the statistics, which require no grad, are constants to it, as
+    in JAX (APG differentiates through the observations)."""
     if not batch.is_floating_point():
         return batch
     data = (batch - mean_std.mean) / mean_std.std

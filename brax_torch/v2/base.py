@@ -28,16 +28,16 @@ Q_WIDTHS = {"f": 7, "1": 1, "2": 2, "3": 3}
 QD_WIDTHS = {"f": 6, "1": 1, "2": 2, "3": 3}
 
 
-def _map(fn, obj):
+def map_tensors(fn, obj):
     """Applies fn to every tensor of a tree of dataclasses, lists and tuples."""
     if isinstance(obj, Tensor):
         return fn(obj)
     if dataclasses.is_dataclass(obj):
-        changes = {f.name: _map(fn, getattr(obj, f.name)) for f in dataclasses.fields(obj)
+        changes = {f.name: map_tensors(fn, getattr(obj, f.name)) for f in dataclasses.fields(obj)
                    if f.metadata.get("static") is None}
         return dataclasses.replace(obj, **changes)
     if isinstance(obj, (list, tuple)):
-        return type(obj)(_map(fn, x) for x in obj)
+        return type(obj)(map_tensors(fn, x) for x in obj)
     return obj
 
 
@@ -46,7 +46,7 @@ class _Base:
         return dataclasses.replace(self, **kw)
 
     def to(self, device):
-        return _map(lambda t: t.to(device), self)
+        return map_tensors(lambda t: t.to(device), self)
 
 
 @dataclass

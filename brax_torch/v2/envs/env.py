@@ -7,7 +7,9 @@ backend it takes one of two routes:
 - the kernel route (`use_kernel=True`, the default), the counterpart of the
   JAX package with `generalized.kernels.enable(True)`: one call of
   `kernels.gen_step` for all frames, which launches the CUDA kernel on CUDA
-  tensors and runs its plain version on CPU tensors;
+  tensors and runs its plain version on CPU tensors; where autograd
+  records the step, through `kernels.GenStep`, whose backward is that of
+  the pipeline's steps (`kernels.kernel_step`);
 - `use_kernel=False`: `pipeline.step` once per frame.
 
 "spring" and "positional" are not ported yet and raise.
@@ -99,7 +101,7 @@ class PipelineEnv(Env):
     def pipeline_step(self, pipeline_state: PipelineState, action: Tensor) -> PipelineState:
         """n_frames physics frames: one kernel call, or n_frames pipeline steps."""
         if self._use_kernel:
-            return kernels.gen_step_state(self.sys, pipeline_state, action, self._n_frames)
+            return kernels.kernel_step(self.sys, pipeline_state, action, self._n_frames)
         for _ in range(self._n_frames):
             pipeline_state = g_pipeline.step(self.sys, pipeline_state, action)
         return pipeline_state

@@ -41,12 +41,14 @@ def imp_aref(pos: Tensor, vel: Tensor) -> Tuple[Tensor, Tensor]:
     dmin, dmax, width, mid, power = 0.9, 0.95, 0.001, 0.5, 2.0
     # a tensor divisor: PyTorch's CUDA division by a Python number multiplies
     # by its reciprocal, which rounds otherwise than the CUDA kernel's division
-    imp_x = torch.abs(pos) / pos.new_tensor(width)
+    imp_x = maths.jnp_abs(pos) / pos.new_tensor(width)
     imp_a = (1.0 / mid ** (power - 1)) * imp_x ** power
     imp_b = 1 - (1.0 / (1 - mid) ** (power - 1)) * (1 - imp_x) ** power
     imp_y = torch.where(imp_x < mid, imp_a, imp_b)
     imp = dmin + imp_y * (dmax - dmin)
-    imp = torch.clamp(imp, dmin, dmax)
+    # minimum/maximum, not clamp: at a tie their gradients split as
+    # jnp.clip's do
+    imp = torch.minimum(torch.maximum(imp, imp.new_tensor(dmin)), imp.new_tensor(dmax))
     imp = torch.where(imp_x > 1.0, torch.full_like(imp, dmax), imp)
     b = 2 / (dmax * timeconst)
     k = 1 / (dmax * dmax * timeconst * timeconst * dampratio * dampratio)
@@ -64,7 +66,7 @@ def jac_limit(sys: System, state: State):
     q = state.q[:, q_idx]
     pos_min = q - lo[qd_idx]
     pos_max = hi[qd_idx] - q
-    pos = torch.clamp(torch.minimum(pos_min, pos_max), max=0.0)
+    pos = torch.minimum(torch.minimum(pos_min, pos_max), torch.zeros_like(q))
     side = ((pos_min < pos_max).to(q.dtype) * 2 - 1) * (pos < 0)
     eye = torch.eye(nd, dtype=q.dtype, device=q.device)[qd_idx]
     return eye * side[..., None], pos, sys.dof.invweight[qd_idx] * (pos < 0)
@@ -119,14 +121,17 @@ def fista_nnls(a: Tensor, b: Tensor, maxiter: int, maxls: int = 5) -> Tensor:
     x = torch.zeros_like(b)
     y = x
     t = torch.ones_like(b[:, 0])
-    eta = 1.0 / (torch.abs(a).sum(dim=2).amax(dim=1) + 1e-10)
+    eta = 1.0 / (maths.jnp_abs(a).sum(dim=2).amax(dim=1) + 1e-10)
     rows = torch.arange(b.shape[0], device=b.device)
     for _ in range(maxiter):
         r = (a @ y[..., None])[..., 0] + b
         f_y = 0.5 * torch.sum(r * r, dim=-1)
         g_y = (a_t @ r[..., None])[..., 0]
         etas = eta[:, None] * halvings
-        cands = torch.clamp(y[:, None] - etas[..., None] * g_y[:, None], min=0.0)
+        # maximum, not clamp: at a tie (an idle row's 0) its gradient splits
+        # as jnp.maximum's does
+        step = y[:, None] - etas[..., None] * g_y[:, None]
+        cands = torch.maximum(step, torch.zeros_like(step))
         diffs = cands - y[:, None]
         f_cands = 0.5 * torch.sum((cands @ a_t + b[:, None]) ** 2, dim=-1)
         bounds = (f_y[:, None] + (diffs @ g_y[..., None])[..., 0]

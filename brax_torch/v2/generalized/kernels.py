@@ -6,7 +6,11 @@ minv, act, n_frames)` runs all `n_frames` generalized-pipeline frames of an
 env step for a whole batch in one launch of `brax_torch/csrc/gen_step.cu`,
 which replaces the Pallas kernel `_build_tile_frames`.  On CPU tensors it
 runs `gen_step_plain`, the same computation in torch; on CUDA tensors it
-launches the kernel or raises, and never falls back.
+launches the kernel or raises, and never falls back.  `kernel_step` steps
+a pipeline State; where autograd records the step it runs through
+`GenStep`, the counterpart of the JAX package's `_with_vjp`: the kernel
+forward, and the VJP of the pipeline's steps (`pipeline.step`) as the
+backward, which is what the JAX backward differentiates.
 
 The semantics are the kernel's, not the pipeline's: each frame recomputes
 kinematics, contacts, CoM terms and the mass matrix from (q, qd), refreshes
@@ -51,7 +55,8 @@ import torch
 
 from brax_torch import cuda_build, maths
 from brax_torch.v2 import kinematics, masks, ordered, scan
-from brax_torch.v2.base import Q_WIDTHS, QD_WIDTHS, Capsule, Plane, Sphere, System, Tensor
+from brax_torch.v2.base import (Q_WIDTHS, QD_WIDTHS, Capsule, Plane, Sphere, System, Tensor,
+                                map_tensors)
 from brax_torch.v2.generalized import constraint, integrator
 from brax_torch.v2.generalized.base import State
 from brax_torch.v2.geometry import contact
@@ -1023,3 +1028,81 @@ def gen_step_state(sys: System, state: State, act: Tensor, n_frames: int) -> Sta
         new = new.replace(contact=state.contact.replace(pos=out["c_pos"],
                                                         penetration=out["c_pen"]))
     return new
+
+
+def float_leaves(tree) -> List[Tensor]:
+    """The floating-point tensors of a State (or any tree of its
+    dataclasses), in field order."""
+    out: List[Tensor] = []
+
+    def keep(t):
+        if t.is_floating_point():
+            out.append(t)
+        return t
+
+    map_tensors(keep, tree)
+    return out
+
+
+def with_float_leaves(tree, leaves):
+    """`tree` with its floating-point tensors replaced, in field order, by
+    `leaves`; its other tensors (the contacts' link indices) kept."""
+    it = iter(leaves)
+    return map_tensors(lambda t: next(it) if t.is_floating_point() else t, tree)
+
+
+class GenStep(torch.autograd.Function):
+    """`gen_step_state` made differentiable, the counterpart of the JAX
+    package's `_with_vjp`: the kernel forward (`gen_step_plain` on CPU
+    tensors, run without autograd) returns every leaf of the State, the
+    refreshed ones and the others passed through (as views); the backward
+    is the VJP of `n_frames` pipeline steps (`pipeline.step`) from the
+    incoming State, the JAX package's `jnp_path`, with every leaf's
+    cotangent.  The JAX backward is plain XLA; this is its counterpart in
+    plain torch.  Saves the incoming State's leaves and the action.
+    `backward_calls` counts the backward's runs of the pipeline."""
+
+    backward_calls = 0
+
+    @staticmethod
+    def forward(ctx, sys, n_frames, state, act, *leaves):
+        ctx.sys, ctx.n_frames = sys, n_frames
+        # the tree without autograd history: its structure and link indices
+        ctx.skeleton = map_tensors(lambda t: t.detach(), state)
+        ctx.save_for_backward(act, *leaves)
+        new = gen_step_state(sys, with_float_leaves(state, leaves), act, n_frames)
+        ins = {id(t) for t in leaves}
+        return tuple(t.view_as(t) if id(t) in ins else t for t in float_leaves(new))
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *grads):
+        from brax_torch.v2.generalized import pipeline as g_pipeline
+
+        ins = [t.detach().requires_grad_(need)
+               for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[3:])]
+        wrt = [t for t in ins if t.requires_grad]
+        with torch.enable_grad(), torch.profiler.record_function("gen_step/pipeline_backward"):
+            state = with_float_leaves(ctx.skeleton, ins[1:])
+            for _ in range(ctx.n_frames):
+                state = g_pipeline.step(ctx.sys, state, ins[0])
+            outs = float_leaves(state)
+            if len(outs) != len(grads):
+                raise RuntimeError(f"the pipeline's State has {len(outs)} float leaves, the "
+                                   f"kernel's {len(grads)}")
+            pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+            dins = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                            allow_unused=True))
+        GenStep.backward_calls += 1
+        return (None, None, None, *(next(dins) if t.requires_grad else None for t in ins))
+
+
+def kernel_step(sys: System, state: State, act: Tensor, n_frames: int) -> State:
+    """An env step of the State through the kernel: `GenStep` where
+    autograd records it (grad enabled and a leaf or the action requiring
+    grad), on either device; otherwise `gen_step_state`, which saves
+    nothing."""
+    leaves = float_leaves(state)
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in leaves + [act])):
+        return gen_step_state(sys, state, act, n_frames)
+    return with_float_leaves(state, GenStep.apply(sys, n_frames, state, act, *leaves))

@@ -36,8 +36,8 @@
    kernels, finite losses, changed parameters and a finite eval reward;
 8. times the fused kernels and the same chains as F.linear calls (cuBLAS,
    a yardstick) replayed from CUDA graphs and issued by the host, their
-   plain versions, PPO env-steps/s with the fused kernels on and off, and
-   profiles one training step each way;
+   plain versions, PPO env-steps/s with the fused kernels on (the main
+   path's run) and off, and profiles one training step with them on;
 9. the v1 humanoid (the PBD kernel built for its scene of spherical
    joints, PBD_SPHERICAL, and for humanoidstandup's, 32 lanes for its 22
    contacts): each held against the twin at 4096 envs from a reset and
@@ -150,15 +150,31 @@
 15. drives PPO on the v2 ant: ppo.train with a factory of the bare v2 ant at
    the ant recipe for 3 training steps and one evaluation of 128 envs, with
    exact launch counts of gen_step and of the fused MLP kernels, then
-   times PPO env-steps/s with the fused kernels on and off in turns and
-   profiles one training step each way;
+   times PPO env-steps/s with the fused kernels on (that run) and off and
+   profiles one training step with them on;
+15b. APG (the physics kernels forward, their autograd Functions'
+   backwards: kernels.PBDStep runs the twin again, GenStep the pipeline's
+   steps): on v1 ant at 4096 envs in contact (step 3's state), then grasp,
+   fetch and the spring ant (steps 9d-9f's states), one step's gradients
+   of a random linear functional of the six outputs, the kernel forward,
+   equal to the twin's under autograd bit for bit (deterministic
+   algorithms on), one launch per forward, the five inputs saved and
+   nothing under no_grad; on ant also over APG_GRAD_STEPS steps by
+   grad_parity.hold_rollout_grads' per-env rules, and timed; the same on
+   the v2 ant at 2048 envs against autograd through five pipeline steps;
+   then apg.train on v1 ant (48 steps) and v2 ant (24 steps) at 2048 envs,
+   an epoch each plain and truncated every 16 steps, with the exact launch
+   counts and backward runs, finite nonzero gradients, moved parameters
+   and a finite eval reward, and an {"apg": ...} line (seconds of rollout,
+   backward and update, launches, the checks, peak memory);
 16. reads the launch-overhead probe's counts, set to 0 before step 3, to
    show that no env or PPO path ran its kernels; holds them
    (brax_torch/csrc/probe.cu) against their plain versions, counts the
    HGMMA (wgmma) instructions in the dot chain's build (cuobjdump), then
    drives the probe (brax_torch.tools.probe_overhead.measure), which times
    every launch both issued by the host and replayed from a CUDA graph;
-17. prints one JSON line listing every kernel and, last,
+17. prints one JSON line listing every kernel (pbd_step's and gen_step's
+   with the backward route their Functions take) and, last,
    {"ok": true, "device": {...}}.
 
 The CUDA sources are built at the start, one nvcc each, in parallel (the
@@ -184,6 +200,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from brax_torch import cuda_build, envs
 from brax_torch.braxlines.defaults import DEFAULT_PPO_PARAMS
 from brax_torch.sim import kernels
+from brax_torch.tools import grad_parity
 from brax_torch.tools import probe_overhead as probe
 from brax_torch.tools.pbd_parity import (MAX_OUTLIERS, PERTURBED_COPIES, ROUNDING_NOISE,
                                          RULES, SPRING_SCENES, STATES, TOLERANCE, capcap_share,
@@ -192,6 +209,8 @@ from brax_torch.tools.pbd_parity import (MAX_OUTLIERS, PERTURBED_COPIES, ROUNDIN
                                          hold_capcap, max_errors, one_pass, spring_env,
                                          spring_states, twister_swimmer)
 from brax_torch.training import fused_mlp
+from brax_torch.training.agents.apg import networks as apg_networks
+from brax_torch.training.agents.apg import train as apg
 from brax_torch.training.agents.ppo import networks as ppo_networks
 from brax_torch.training.agents.ppo import train as ppo
 from brax_torch.v2 import envs as v2_envs
@@ -280,6 +299,10 @@ V2_ENV_STEPS = 50
 V2_LOWER = 0.1
 PPO_STEPS = 3
 PPO_EVAL_ENVS = 128
+# the PPO runs after the main path's (fused on), in turns: one with the fused
+# MLP off (cut from off, on, off in PR 14, to make room for the APG phases
+# in the time limit; the spread between runs was wider than the on/off gap)
+PPO_TURNS = (False,)
 # v1 humanoid: the spherical scenes held to the twin, each env's main-path
 # steps and observation width, and PPO's training steps at its recipe
 HUMANOID_SCENES = ("humanoid", "humanoidstandup")
@@ -329,6 +352,18 @@ SPRING_OBS = {"ant": 87, "halfcheetah": 18, "humanoid_legacy": 227, "humanoidsta
 PPO_SPRING_STEPS = 2
 # the factory PPO trains the spring ant on
 SPRING_ANT = envs.create_fn("ant", legacy_spring=True, episode_length=None, auto_reset=False)
+# APG (the physics kernels forward, the autograd Functions' backwards): the
+# main paths' batch and eval batch, each epoch's steps (cut from the
+# recipes' 1000 for time: 64 and 32 took the APG phases 147-205 s, over the
+# 3 minutes they may take; a step's backward is 0.5-0.7 s on v1, 0.8-1.2 s
+# on v2), the truncation of the second epoch, the learner CLI's learning
+# rate and clip (brax_tpu/training/learner.py:47-48), and the gradient
+# checks' steps over which the kernel's trajectory and the twin's part
+APG_ENVS, APG_EVAL_ENVS = 2048, 128
+APG_EPISODE = {"v1 ant": 48, "v2 ant": 24}
+APG_TRUNCATION = 16
+APG_RECIPE = dict(learning_rate=5e-4, max_gradient_norm=1e9, normalize_observations=True)
+APG_GRAD_STEPS = 4
 # the PBD kernel's batch sizes: PPO's eval, PPO's training batch, env.step's
 PBD_TIMING_ENVS = (PPO_EVAL_ENVS, 2048, N_ENVS)
 PROFILE_EPISODE = 10
@@ -871,15 +906,16 @@ def expected_launches(p, steps):
 
 
 class InitRecorder:
-    """A network factory that keeps the networks it makes and a copy of the
-    parameters each network's `init` returns."""
+    """A network factory (`make`, by default PPO's) that keeps the networks
+    it makes and a copy of the parameters each network's `init` returns."""
 
-    def __init__(self):
+    def __init__(self, make=ppo_networks.make_ppo_networks, sides=("policy", "value")):
+        self.make, self.sides = make, sides
         self.networks, self.initial = None, {}
 
     def factory(self, *args, **kwargs):
-        self.networks = ppo_networks.make_ppo_networks(*args, **kwargs)
-        for side in ("policy", "value"):
+        self.networks = self.make(*args, **kwargs)
+        for side in self.sides:
             net = getattr(self.networks, f"{side}_network")
             net.init = self._recording(side, net.init)
         return self.networks
@@ -1758,6 +1794,175 @@ def spring_paths(tag, phase, s_envs):
             "per_step": per_step_s, "seconds": s_ppo_s}
 
 
+def apg_counts():
+    """The kernels' launch counts and the Functions' backward runs."""
+    return {"pbd_step": kernels.pbd_step_launch.launches,
+            "gen_step": gen_kernels.gen_step_soa.launches,
+            "fused_mlp_fwd": fused_mlp.chain_fwd.launches,
+            "fused_mlp_bwd": fused_mlp.chain_bwd.launches,
+            "pbd_step_backward_runs": kernels.PBDStep.backward_calls,
+            "gen_step_backward_runs": gen_kernels.GenStep.backward_calls}
+
+
+def zero_apg_counts():
+    kernels.pbd_step_launch.launches = gen_kernels.gen_step_soa.launches = 0
+    fused_mlp.chain_fwd.launches = fused_mlp.chain_bwd.launches = 0
+    kernels.PBDStep.backward_calls = gen_kernels.GenStep.backward_calls = 0
+
+
+def pbd_grad_check(tag, label, sys_, qp, act, gen, rollout_steps=0, timed=False):
+    """`kernels.PBDStep` on one state: (a) its gradients of a random linear
+    functional of the six outputs, the kernel forward, equal the twin's
+    under autograd bit for bit (deterministic algorithms on); (c) its
+    forward is one launch, it saves its five inputs, and a step under
+    no_grad saves nothing; (b) over `rollout_steps` steps the two agree by
+    grad_parity.hold_rollout_grads' per-env rules; where `timed`, a step
+    forward and backward, the Function's and the twin's."""
+    ws = grad_parity.weights(grad_parity.pbd_outputs(*kernels.pbd_step_plain(sys_, qp, act)))
+    with grad_parity.deterministic():
+        before = kernels.pbd_step_launch.launches
+        got = grad_parity.pbd_grads(sys_, qp, act, ws, kernels.pbd_step)
+        launches = kernels.pbd_step_launch.launches - before
+        want = grad_parity.pbd_grads(sys_, qp, act, ws, kernels.pbd_step_plain)
+    torch.cuda.synchronize()
+    same = grad_parity.bit_identical(got, want)
+    leaf = act.clone().requires_grad_()
+    (_, _), saved = grad_parity.saved_tensors(lambda: kernels.pbd_step(sys_, qp, leaf))
+    with torch.no_grad():
+        (out, _), saved_no_grad = grad_parity.saved_tensors(
+            lambda: kernels.pbd_step(sys_, qp, leaf))
+    finite = all(bool(torch.isfinite(g).all()) for g in got.values())
+    record = {"envs": qp.pos.shape[0], "bit_identical": same, "forward_launches": launches,
+              "saved_with_grad": saved, "saved_under_no_grad": saved_no_grad, "finite": finite,
+              "max_abs_grad": {k: float(g.abs().max()) for k, g in got.items()}}
+    if not (same and finite and launches == 1 and saved == 5 and saved_no_grad == 0
+            and out.pos.grad_fn is None):
+        raise AssertionError(f"APG {label}: the PBD Function's check failed: {record}")
+    if timed:
+        record["fwd_bwd_ms"] = cuda_ms(
+            lambda: grad_parity.pbd_grads(sys_, qp, act, ws, kernels.pbd_step), reps=2, warmup=1)
+        record["plain_fwd_bwd_ms"] = cuda_ms(
+            lambda: grad_parity.pbd_grads(sys_, qp, act, ws, kernels.pbd_step_plain), reps=2,
+            warmup=1)
+    if rollout_steps:
+        record["rollout"] = grad_parity.hold_rollout_grads(sys_, qp, act, rollout_steps, gen)
+    print(f"APG {tag}: pbd_step gradients, {label}: {record}")
+    return record
+
+
+def gen_grad_check(tag, device):
+    """`generalized.kernels.GenStep` on the v2 ant at APG_ENVS envs from a
+    reset: (a) its gradients, the kernel forward, equal those of autograd
+    through GEN_FRAMES pipeline steps bit for bit; (c) one launch forward,
+    the State's float leaves and the action saved, nothing under no_grad;
+    a step forward and backward timed, the Function's and the pipeline's."""
+    env = v2_envs.create("ant", batch_size=APG_ENVS, device=device)
+    state = env.reset(torch.Generator(device=device).manual_seed(0)).pipeline_state
+    act = torch.rand((APG_ENVS, 8), generator=torch.Generator(device=device).manual_seed(1),
+                     device=device) * 2 - 1
+    sys_ = env.unwrapped.sys
+    ws = grad_parity.weights(gen_kernels.float_leaves(state))
+    with grad_parity.deterministic():
+        before = gen_kernels.gen_step_soa.launches
+        got = grad_parity.gen_grads(sys_, state, act, GEN_FRAMES, ws, "function")
+        launches = gen_kernels.gen_step_soa.launches - before
+        want = grad_parity.gen_grads(sys_, state, act, GEN_FRAMES, ws, "pipeline")
+    torch.cuda.synchronize()
+    same = grad_parity.bit_identical(got, want)
+    leaf = act.clone().requires_grad_()
+    _, saved = grad_parity.saved_tensors(
+        lambda: gen_kernels.kernel_step(sys_, state, leaf, GEN_FRAMES))
+    with torch.no_grad():
+        out, saved_no_grad = grad_parity.saved_tensors(
+            lambda: gen_kernels.kernel_step(sys_, state, leaf, GEN_FRAMES))
+    n_leaves = len(gen_kernels.float_leaves(state))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    record = {"envs": APG_ENVS, "bit_identical": same, "forward_launches": launches,
+              "saved_with_grad": saved, "saved_under_no_grad": saved_no_grad, "finite": finite,
+              "float_leaves": n_leaves, "max_abs_grad_act": float(got[0].abs().max())}
+    if not (same and finite and launches == 1 and saved == n_leaves + 1 and saved_no_grad == 0
+            and out.q.grad_fn is None):
+        raise AssertionError(f"APG: the generalized Function's check failed: {record}")
+    record["fwd_bwd_ms"] = cuda_ms(lambda: grad_parity.gen_grads(
+        sys_, state, act, GEN_FRAMES, ws, "function"), reps=2, warmup=1)
+    record["pipeline_fwd_bwd_ms"] = cuda_ms(lambda: grad_parity.gen_grads(
+        sys_, state, act, GEN_FRAMES, ws, "pipeline"), reps=2, warmup=1)
+    print(f"APG {tag}: gen_step gradients, v2 ant: {record}")
+    return record
+
+
+def apg_main_path(tag, label, environment, truncation=None):
+    """`apg.train` on `environment` at APG_ENVS envs for one epoch of
+    APG_EPISODE[label] steps (with an evaluation of APG_EVAL_ENVS envs
+    before it unless `truncation` is given, and one after): finite nonzero
+    gradients, moved parameters, a finite eval reward, and launch counts
+    and backward runs (counts set to 0 just before, read just after) equal
+    to what the run implies."""
+    steps = APG_EPISODE[label]
+    evals = 1 if truncation else 2
+    recorder = InitRecorder(apg_networks.make_apg_networks, ("policy",))
+    zero_apg_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, (_, params), metrics = apg.train(
+        environment, episode_length=steps, num_envs=APG_ENVS, num_eval_envs=APG_EVAL_ENVS,
+        num_evals=evals, truncation_length=truncation, seed=0, device=DEVICE,
+        network_factory=recorder.factory, **APG_RECIPE)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = apg_counts()
+    graded = steps - (steps // truncation if truncation else 0)
+    physics = "pbd_step" if label.startswith("v1") else "gen_step"
+    want = {k: 0 for k in counts}
+    want.update({physics: (evals + 1) * steps, "fused_mlp_fwd": (evals + 1) * steps,
+                 "fused_mlp_bwd": graded, f"{physics}_backward_runs": graded})
+    moved = min(float((params[k] - v).abs().max()) for k, v in recorder.initial["policy"].items())
+    grad_norm, reward = metrics["training/grad_norm"], metrics["eval/episode_reward"]
+    if counts != want:
+        raise AssertionError(f"APG {label}: counts {counts}, expected {want}")
+    if not (np.isfinite(grad_norm) and grad_norm > 0 and np.isfinite(reward) and moved > 0):
+        raise AssertionError(f"APG {label}: grad_norm {grad_norm}, eval reward {reward}, "
+                             f"smallest parameter change {moved}")
+    record = {"steps": steps, "envs": APG_ENVS, "truncation_length": truncation,
+              "seconds": seconds, "launches": counts, "grad_norm": grad_norm,
+              "unclipped_grad_norm": metrics["training/unclipped_grad_norm"],
+              "params_norm": metrics["training/params_norm"], "eval_episode_reward": reward,
+              "smallest_param_change": moved,
+              **{k: metrics[f"training/{k}"] for k in ("rollout_s", "backward_s", "update_s")},
+              "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    print(f"main path APG {label} {tag}: one epoch of {steps} steps at {APG_ENVS} envs "
+          f"(truncation {truncation}) + {evals} eval(s) of {APG_EVAL_ENVS} envs in {seconds:.1f} "
+          f"s: rollout {record['rollout_s']:.3f} s, backward {record['backward_s']:.3f} s, update "
+          f"{record['update_s']:.4f} s; launches and backward runs {counts} (as expected); "
+          f"grad_norm {grad_norm:.5g}, eval/episode_reward {reward:.5g}; every parameter moved "
+          f"(smallest max change {moved:.3e}); peak memory "
+          f"{record['max_memory_allocated'] / 2**30:.3f} GiB")
+    return record
+
+
+def apg_paths(tag, phase, pbd_states, gen):
+    """The APG phases: the PBD Function's gradient checks on each of
+    `pbd_states` ({label: (sys, qp, act)}, v1 ant first: over
+    APG_GRAD_STEPS steps too, and timed), the generalized Function's on v2
+    ant, then the main paths, apg.train on v1 and v2 ant, each a plain
+    epoch and one truncated every APG_TRUNCATION steps."""
+    phase("APG: pbd_step gradients")
+    pbd = {label: pbd_grad_check(tag, label, sys_, qp, act, gen,
+                                 rollout_steps=APG_GRAD_STEPS if label == "ant" else 0,
+                                 timed=label == "ant")
+           for label, (sys_, qp, act) in pbd_states.items()}
+    phase("APG: gen_step gradients")
+    gen_check = gen_grad_check(tag, DEVICE)
+    phase("main path: APG on v1 ant")
+    v1 = {"plain": apg_main_path(tag, "v1 ant", "ant"),
+          "truncated": apg_main_path(tag, "v1 ant", "ant", APG_TRUNCATION)}
+    phase("main path: APG on v2 ant")
+    v2 = {"plain": apg_main_path(tag, "v2 ant", v2_ant),
+          "truncated": apg_main_path(tag, "v2 ant", v2_ant, APG_TRUNCATION)}
+    return {"pbd_step_gradients": pbd, "gen_step_gradients": gen_check, "v1 ant": v1,
+            "v2 ant": v2}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -1851,6 +2056,7 @@ def main():
     print(f"parity state: {N_ENVS} envs after 10 twin steps, {in_contact:.3f} in contact")
     act = torch.rand((N_ENVS, env.action_size), generator=gen, device=device) * 2 - 1
     errs, inside_errs, outliers = max_errors(sys_, qp, act, gen)
+    apg_states = {"ant": (sys_, qp, act)}
 
     # -- main path: 200 env steps through envs.create ---------------------------
     phase("main path: env.step")
@@ -1953,13 +2159,12 @@ def main():
     # -- PPO env-steps/s, fused kernels on and off, in turns ---------------------
     phase("PPO timings and profiles")
     sps = {"on": [ppo_metrics["training/sps_after_first"]], "off": []}
-    for fused in (False, True, False):
+    for fused in PPO_TURNS:
         sps["on" if fused else "off"].append(
             run_ppo(fused, PPO_STEPS)[2]["training/sps_after_first"])
     print(f"timing {tag}: PPO training env-steps/s over steps 2-{PPO_STEPS} (host clock): "
           f"fused_mlp on {sps['on']}, off {sps['off']}")
-    profiles = {mode: print_profile(tag, "", mode, profile_training_step(fused))
-                for mode, fused in (("on", True), ("off", False))}
+    profiles = {"on": print_profile(tag, "", "on", profile_training_step(True))}
 
     h = humanoid_paths(tag, phase, h_envs, checks, fused_plans, times, bounds)
     h_scene, h_main, h_launches, h_ppo = h["scene"], h["main"], h["launches"], h["ppo"]
@@ -1992,6 +2197,9 @@ def main():
                                  "PPO grasp": g_launches[f"fused_mlp_{kind}"],
                                  "PPO fetch": b_launches[f"fused_mlp_{kind}"],
                                  "PPO spring ant": s_launches[f"fused_mlp_{kind}"],
+                                 **{f"APG {label} {k}": r["launches"][f"fused_mlp_{kind}"]
+                                    for label in ("v1 ant", "v2 ant")
+                                    for k, r in apg_run[label].items()},
                                  "probe": probe_launches.get(f"fused_mlp_{kind}", 0)},
             "launches_per_training_step": per_step_launches[kind],
             "max_abs_err": max(c[kind]["max_abs_err"] for k, c in checks.items()
@@ -2159,14 +2367,19 @@ def main():
     print(f"timing {tag}: gen_step {v2_kernel_ms:.4f} ms/launch at the recipe's {p['num_envs']} "
           f"envs; {want_v2['gen_step']} launches in the PPO v2 run")
     v2_sps = {"on": [v2_metrics["training/sps_after_first"]], "off": []}
-    for fused in (False, True, False):
+    for fused in PPO_TURNS:
         v2_sps["on" if fused else "off"].append(
             run_ppo(fused, PPO_STEPS, environment=v2_ant)[2]["training/sps_after_first"])
     print(f"timing {tag}: PPO on v2 ant, training env-steps/s over steps 2-{PPO_STEPS} (host "
           f"clock): fused_mlp on {v2_sps['on']}, off {v2_sps['off']}")
-    v2_profiles = {mode: print_profile(tag, "PPO v2 ant, ", mode,
-                                       profile_training_step(fused, environment=v2_ant))
-                   for mode, fused in (("on", True), ("off", False))}
+    v2_profiles = {"on": print_profile(tag, "PPO v2 ant, ", "on",
+                                       profile_training_step(True, environment=v2_ant))}
+
+    # -- APG: the physics Functions' gradients, then apg.train on v1 and v2 ant ----------
+    apg_states.update({"grasp": tuple(g_scene["grasp"][k] for k in ("sys", "qp", "act")),
+                       "fetch": tuple(b_scene["fetch"][k] for k in ("sys", "qp", "act")),
+                       "spring ant": tuple(s_scene["ant"][k] for k in ("sys", "qp", "act"))})
+    apg_run = apg_paths(tag, phase, apg_states, torch.Generator(device=device).manual_seed(11))
 
     # -- the launch-overhead probe ------------------------------------------------------
     phase("probe parity")
@@ -2279,6 +2492,19 @@ def main():
                        "launches_per_training_step": sp_["per_step"],
                        "seconds": sp_["seconds"]},
         "card": name_limit}}))
+    print(json.dumps({"apg": {
+        "epoch_seconds": {f"{label} {kind}": {k: r[k] for k in ("rollout_s", "backward_s",
+                                                               "update_s")}
+                          for label in ("v1 ant", "v2 ant") for kind, r in apg_run[label].items()},
+        "launches": {f"{label} {kind}": r["launches"] for label in ("v1 ant", "v2 ant")
+                     for kind, r in apg_run[label].items()},
+        "gradient_checks": {"pbd_step": apg_run["pbd_step_gradients"],
+                            "gen_step": apg_run["gen_step_gradients"]},
+        "max_memory_allocated": {f"{label} {kind}": r["max_memory_allocated"]
+                                 for label in ("v1 ant", "v2 ant")
+                                 for kind, r in apg_run[label].items()},
+        "main_paths": {label: apg_run[label] for label in ("v1 ant", "v2 ant")},
+        "card": name_limit}}))
     print(json.dumps({"kernels": [{
         "name": "pbd_step",
         "route": "cuda",
@@ -2316,6 +2542,10 @@ def main():
         "bound_by": bound_by,
         "library_ms": None,
         "design": "per-System source; an env over lanes of a warp, state in registers",
+        "backward": "kernels.PBDStep (torch.autograd.Function): the kernel forward, the twin "
+                    "(pbd_step_plain) re-run under autograd from the saved inputs as the "
+                    "backward, as the JAX package's _with_vjp (brax_tpu/sim/kernels.py:1357)",
+        "backward_checks": apg_run["pbd_step_gradients"],
         "launch": pbd_launch,
         "env_steps_per_s": N_ENVS / step_s,
         "launches_ppo": ppo_launches["pbd_step"],
@@ -2333,7 +2563,9 @@ def main():
                              "PPO fetch": b_launches["pbd_step"],
                              **{f"{name} (legacy spring) {'sys' if 'sys_step_ms' in r else 'env'}"
                                 f".step": r["launches"] for name, r in s_main.items()},
-                             "PPO spring ant": s_launches["pbd_step"]},
+                             "PPO spring ant": s_launches["pbd_step"],
+                             **{f"APG v1 ant {kind}": r["launches"]["pbd_step"]
+                                for kind, r in apg_run["v1 ant"].items()}},
         "by_scene": {
             "ant": {"ms": kernel_ms, "ms_host_issued": pbd_by_envs[N_ENVS]["host"],
                     "ms_by_envs": pbd_by_envs, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2419,6 +2651,11 @@ def main():
             "env_steps_per_s": N_ENVS / gen_step_s,
             "profile": gen_profile,
             "design": "a warp per env, its workspace in shared memory",
+            "backward": "generalized.kernels.GenStep (torch.autograd.Function): the kernel "
+                        "forward, the VJP of GEN_FRAMES pipeline steps from the incoming State "
+                        "as the backward, as the JAX package's _with_vjp "
+                        "(brax_tpu/v2/generalized/kernels.py:1317)",
+            "backward_checks": apg_run["gen_step_gradients"],
             "envs_per_block": gen_launches_by_scene["ant"][f"at_{N_ENVS}"]["envs_per_block"],
             "smem_bytes_per_env": gen_launches_by_scene["ant"]["smem_bytes_per_env"],
             "smem_bytes_per_block": gen_launches_by_scene["ant"][f"at_{N_ENVS}"][
@@ -2427,6 +2664,8 @@ def main():
             "ms_by_envs_and_envs_per_block": sweep,
             "launches_by_path": {"v2 ant env.step": gen_launches,
                                  "PPO v2 ant": v2_launches["gen_step"],
+                                 **{f"APG v2 ant {kind}": r["launches"]["gen_step"]
+                                    for kind, r in apg_run["v2 ant"].items()},
                                  **{f"v2 {name} env.step": r["launches"]
                                     for name, r in v2_records.items()}},
             "by_env": {name: {

@@ -1,5 +1,6 @@
 """The CUDA kernels (PBD step, fused MLP, generalized step, the launch-overhead
-probe) against their plain versions, on a CUDA card.
+probe) against their plain versions, on a CUDA card, and the physics
+steps' autograd Functions (APG's gradients) with the kernels forward.
 
 These tests skip without a card.  This file imports no JAX, so that it runs
 where only PyTorch is installed:
@@ -15,6 +16,7 @@ import torch
 from brax_torch import cuda_build
 from brax_torch.envs.ant import Ant
 from brax_torch.sim import kernels
+from brax_torch.tools import grad_parity as gp
 from brax_torch.tools import probe_overhead as probe
 from brax_torch.training import fused_mlp
 from brax_torch.v2 import envs as v2_envs
@@ -1204,3 +1206,121 @@ def test_fused_kernels_at_the_halfcheetah_chains(cuda, chain, rows):
     an evaluation (128), in the default bf16 mode."""
     x, ws, bs, g = _chain(cuda, (rows,), *chain)
     _check_against_plain(x, ws, bs, g / rows, "swish", True)
+
+
+# ---------------------------------------------------------------------------
+# APG: the physics steps' autograd Functions, the kernels forward
+# ---------------------------------------------------------------------------
+
+
+def test_pbd_function_gradients_equal_the_twins_bit_for_bit(cuda):
+    """One step from the ant's contact state: the Function (one kernel
+    launch forward, the twin's backward) against autograd through the twin."""
+    env, qp, act = _contact_state(cuda, n=2048)
+    ws = gp.weights(gp.pbd_outputs(*kernels.pbd_step_plain(env.sys, qp, act)))
+    before = kernels.pbd_step_launch.launches
+    with gp.deterministic():
+        got = gp.pbd_grads(env.sys, qp, act, ws, kernels.pbd_step)
+        want = gp.pbd_grads(env.sys, qp, act, ws, kernels.pbd_step_plain)
+    torch.cuda.synchronize()
+    assert kernels.pbd_step_launch.launches == before + 1
+    assert gp.bit_identical(got, want)
+
+
+def test_gen_function_gradients_equal_the_pipelines_bit_for_bit(cuda):
+    env = v2_envs.create("ant", batch_size=512, device=cuda)
+    state = env.reset(torch.Generator(device=cuda).manual_seed(0)).pipeline_state
+    act = torch.rand((512, 8), generator=torch.Generator(device=cuda).manual_seed(1),
+                     device=cuda) * 2 - 1
+    ws = gp.weights(gen_kernels.float_leaves(state))
+    before = gen_kernels.gen_step_soa.launches
+    with gp.deterministic():
+        got = gp.gen_grads(env.unwrapped.sys, state, act, 5, ws, "function")
+        want = gp.gen_grads(env.unwrapped.sys, state, act, 5, ws, "pipeline")
+    torch.cuda.synchronize()
+    assert gen_kernels.gen_step_soa.launches == before + 1
+    assert gp.bit_identical(got, want)
+
+
+def test_grad_enabled_steps_launch_once_and_no_grad_steps_save_nothing(cuda):
+    env, qp, act = _contact_state(cuda, n=256)
+    leaf = act.clone().requires_grad_()
+    before = kernels.pbd_step_launch.launches
+    cur = qp
+    for _ in range(3):
+        (cur, _), saved = gp.saved_tensors(lambda: kernels.pbd_step(env.sys, cur, leaf))
+        assert saved == 5 and type(cur.pos.grad_fn).__name__ == "PBDStepBackward"
+    assert kernels.pbd_step_launch.launches == before + 3
+    cur.pos.sum().backward()
+    assert kernels.pbd_step_launch.launches == before + 3  # the backward is the twin's
+    with torch.no_grad():
+        (out, _), saved = gp.saved_tensors(lambda: kernels.pbd_step(env.sys, qp, leaf))
+    assert saved == 0 and out.pos.grad_fn is None
+    assert kernels.pbd_step_launch.launches == before + 4
+    v2 = v2_envs.create("ant", batch_size=256, device=cuda)
+    state = v2.reset(torch.Generator(device=cuda).manual_seed(1))
+    v2_act = torch.zeros((256, 8), device=cuda, requires_grad=True)
+    before = gen_kernels.gen_step_soa.launches
+    for _ in range(3):
+        state = v2.step(state, v2_act)
+    torch.cuda.synchronize()
+    assert gen_kernels.gen_step_soa.launches == before + 3
+    grad = torch.autograd.grad(state.reward.sum(), v2_act)[0]
+    assert gen_kernels.gen_step_soa.launches == before + 3
+    assert bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0
+
+
+def test_no_grad_pbd_launch_replays_from_a_cuda_graph(cuda):
+    """Inputs that require grad, stepped under no_grad: the plain launch,
+    which a CUDA graph captures and replays to the eager bits."""
+    env, qp, act = _contact_state(cuda, n=512)
+    qp = dataclasses.replace(qp, pos=qp.pos.clone().requires_grad_())
+    with torch.no_grad():
+        want, _ = kernels.pbd_step(env.sys, qp, act)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            kernels.pbd_step(env.sys, qp, act)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got, _ = kernels.pbd_step(env.sys, qp, act)
+        got.pos.fill_(float("nan"))
+        graph.replay()
+    torch.cuda.synchronize()
+    assert got.pos.grad_fn is None
+    for x, y in zip((want.pos, want.rot, want.vel, want.ang), (got.pos, got.rot, got.vel,
+                                                               got.ang)):
+        assert torch.equal(x, y)
+
+
+def test_fused_policy_dx_reaches_the_physics_as_the_plain_chains(cuda, monkeypatch):
+    """One APG step of the ant at 2048 envs: obs -> fused policy -> PBD
+    step -> reward; d(reward)/d(obs) through the fused backward (its dx
+    goes on into the physics) against the same step through the plain
+    chain, within the fused tests' bf16 bound."""
+    from brax_torch.training import networks
+    from brax_torch.training.agents.apg import networks as apg_networks
+
+    env, qp, _ = _contact_state(cuda, n=2048)
+    state = env.reset(torch.Generator(device=cuda).manual_seed(0)).replace(qp=qp)
+    state = state.replace(obs=env._get_obs(qp, env.sys.info(qp)))
+    nets = apg_networks.make_apg_networks(87, 8, device=cuda)
+    params = nets.policy_network.init(torch.Generator(device=cuda).manual_seed(0))
+    policy = apg_networks.make_inference_fn(nets)((None, params), deterministic=True)
+
+    def d_obs():
+        obs = state.obs.clone().requires_grad_()
+        nstate = env.step(state.replace(obs=obs), policy(obs, None)[0])
+        return torch.autograd.grad(nstate.reward.sum(), obs)[0]
+
+    with fused_mlp.enabled_as(True):
+        before = fused_mlp.chain_bwd.launches
+        got = d_obs()
+        assert fused_mlp.chain_bwd.launches == before + 1
+        monkeypatch.setattr(fused_mlp, "dense_chain", fused_mlp.dense_chain_plain)
+        want = d_obs()
+    assert networks.fused_mlp is fused_mlp
+    err = float((got - want).abs().max())
+    assert bool(torch.isfinite(got).all()) and float(want.abs().max()) > 0
+    assert err <= BF16_REL * float(want.abs().max()), err
