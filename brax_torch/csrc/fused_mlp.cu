@@ -5,7 +5,10 @@
 //   _bwd_kernel (launched by _get_op.call_bwd, fused_mlp.py:247).
 //
 // The chain: z_i = a_i @ W_i + b_i, a_{i+1} = act(z_i), a linear last layer.
-// W_i is [d_i, d_{i+1}] row-major (flax's layout), d_i <= MAX_WIDTH.  In bf16
+// W_i is [d_i, d_{i+1}] row-major (flax's layout), every d_{i+1} <= MAX_WIDTH
+// and the input d_0 <= MAX_IN_WIDTH (SAC's critic takes obs and action
+// together: humanoid's 240 + 17 = 257; the widest first layer of 256
+// outputs that a stage holds resident beside its tiles).  In bf16
 // mode the matmul inputs are rounded to bf16 (round to nearest even) and
 // multiplied on the tensor cores (mma.sync m16n8k16) with f32 sums, as the
 // TPU kernel's bf16 MXU dots; bias, activation and act' stay in f32.  In f32
@@ -46,7 +49,8 @@
 //                    and db's per-tile column sums of the f32 g_i, and hands
 //                    dL/da_i = bf16(g_i) @ W_i^T (B by ldmatrix.trans from
 //                    the same resident W_i) in f32 to stage i - 1, or writes
-//                    it as dx.
+//                    it as dx (an input wider than 256 columns in a second
+//                    round of warp items, columns 256 on).
 //   dw_kernel        dW_i = a_i^T g_i: one block per 64x64 dW tile and slice
 //                    of rows, bf16 chunks of 64 rows in a three-stage
 //                    cp.async ring, mma.sync with ldmatrix.trans fragments.
@@ -67,6 +71,8 @@
 typedef __nv_bfloat16 bf16;
 
 #define MAX_WIDTH 256
+#define MAX_IN_WIDTH 352  // d_0: kpad_0 + 8 bf16 columns of 256 rows fit at a 16-row backward tile
+static_assert(MAX_IN_WIDTH <= 2 * MAX_WIDTH, "dx takes at most two rounds of warp items");
 #define MAX_LAYERS 8
 #define THREADS 256         // the dW pass and the f32 kernels
 #define PT 512              // the pipeline kernels: 16 warps, an item each
@@ -96,6 +102,7 @@ struct Chain {
 
 __host__ __device__ constexpr int rup(int x, int m) { return (x + m - 1) / m * m; }
 __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
 
 // The cluster is a pipeline: stage s (CTA rank s) holds layers lo[s]..hi[s],
 // whole, as bf16 W^T [npad][kpad + 8] followed by their f32 biases: the
@@ -136,7 +143,8 @@ __host__ __device__ constexpr Layout make_layout(int L, const int* dims, int M, 
     nmax = imax(nmax, s.npad[i]);
   }
   s.lda = kmax + 8;
-  s.ldr = kmax + 4;
+  // the f32 tiles hold dL/da_{i+1} and act'(z_i), never the input's width
+  s.ldr = imin(kmax, MAX_WIDTH) + 4;
   s.ldg = nmax + 8;
   s.x_slot = rup(M * dims[0] * 4, 16);
   const int fwd_tiles = M * s.lda * 2 + xstages * s.x_slot;
@@ -175,8 +183,8 @@ __host__ __device__ constexpr Layout make_layout(int L, const int* dims, int M, 
   return s;
 }
 
-// The PPO ant and halfcheetah recipes' chains and the widest chain the
-// kernel takes, at the plans fused_mlp.plan picks for them (tests/test_torch_fused_launch.py
+// The PPO ant and halfcheetah recipes' chains, SAC's critics and the
+// widest chains the kernel takes, at the plans fused_mlp.plan picks for them (tests/test_torch_fused_launch.py
 // reads these lines and holds plan() to the same bytes and stages).
 #define LAYOUT_CHECK(chain, m, xs, bw, want, want_stages)                                     \
   static_assert(make_layout(sizeof(chain) / sizeof(int) - 1, chain, m, xs, bw).bytes == want &&  \
@@ -202,6 +210,20 @@ LAYOUT_CHECK(VALUE18, 64, 2, 0, 179232, 6);
 LAYOUT_CHECK(VALUE18, 32, 2, 1, 221728, 6);
 LAYOUT_CHECK(POLICY18, 16, 2, 0, 15776, 1);
 LAYOUT_CHECK(POLICY18, 16, 2, 1, 20128, 1);
+// SAC's critics: humanoid's obs and action, 240 + 17 = 257 wide (padded to
+// 272: a stage per layer, 16-row tiles), halfcheetah's 18 + 6 (the whole
+// chain in one CTA), and the widest input, MAX_IN_WIDTH, at the 16-row
+// tile and one x staging slot it fits at
+constexpr int Q257[] = {257, 256, 256, 1};
+constexpr int Q24[] = {24, 256, 256, 1};
+constexpr int QWIDEST[] = {352, 256, 256, 1};
+static_assert(QWIDEST[0] == MAX_IN_WIDTH, "QWIDEST is the widest input");
+LAYOUT_CHECK(Q257, 16, 2, 0, 186272, 3);
+LAYOUT_CHECK(Q257, 16, 2, 1, 188192, 3);
+LAYOUT_CHECK(Q24, 16, 2, 0, 177824, 1);
+LAYOUT_CHECK(Q24, 16, 2, 1, 210080, 1);
+LAYOUT_CHECK(QWIDEST, 16, 1, 0, 219424, 3);
+LAYOUT_CHECK(QWIDEST, 16, 1, 1, 229152, 3);
 
 // ---------------------------------------------------------------------------
 // primitives
@@ -368,23 +390,25 @@ __device__ __forceinline__ uint32_t sel4(const uint32_t* v, int i) {
 // A warp's item of an output tile: rows rb.. (two 16-row tiles at 64 rows,
 // one at 32 or 16), columns cb.. (up to four 8-column tiles; two at 16
 // rows).  Every tile of at most 64 rows and 256 columns is at most one
-// item per warp: 2 x 8 items at 64 and 32 rows, 1 x 16 at 16.
+// item per warp: 2 x 8 items at 64 and 32 rows, 1 x 16 at 16.  A wider
+// tile (dx of an input wider than 256) takes a second round of items, its
+// columns from `base` = 256 on.
 struct Item {
   int rb, cb, mts, nts;
   bool active;
 };
 
-__device__ __forceinline__ Item warp_item(int rows, int cols) {
+__device__ __forceinline__ Item warp_item(int rows, int cols, int base = 0) {
   const int w = threadIdx.x >> 5;
   Item it;
   if (rows == 16) {
     it.rb = 0;
-    it.cb = w * 16;
+    it.cb = base + w * 16;
     it.mts = 1;
     it.nts = min(2, (cols - it.cb) / 8);
   } else {
     it.rb = (w >> 3) * (rows / 2);
-    it.cb = (w & 7) * 32;
+    it.cb = base + (w & 7) * 32;
     it.mts = rows / 32;
     it.nts = min(4, (cols - it.cb) / 8);
   }
@@ -921,26 +945,33 @@ __device__ void reverse_pass(const Chain& ch, const Layout& lay, const Scratch& 
       }
       if (i == lo && receives && threadIdx.x == 0) mbar_arrive_remote(next_empty);  // Rf is free
       __syncthreads();  // Gs is whole
-      // dL/da_i = bf16(g) @ W_i^T
-      const Item item = warp_item(M, kp);
-      float acc[2][4][4];
-      item_mma<true>(acc, item, Gs, ldg, Wt, lay.ldw[i], np);
+      // dL/da_i = bf16(g) @ W_i^T; dx (i = 0) in rounds of 256 columns
       if (i == 0) {
-        if (item.active)
+        auto dx_round = [&](int base) {
+          const Item item = warp_item(M, kp, base);
+          float acc[2][4][4];
+          item_mma<true>(acc, item, Gs, ldg, Wt, lay.ldw[i], np);
+          if (item.active)
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
+            for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
+              for (int j = 0; j < 4; ++j)
 #pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                const int r = item.rb + 16 * mi + g4 + 8 * h, c = item.cb + 8 * j + 2 * t4;
-                if (mi < item.mts && j < item.nts && r < valid) {
-                  float* dr = dx + (size_t)(row0 + r) * d0;
-                  if (c < d0) dr[c] = acc[mi][j][2 * h];
-                  if (c + 1 < d0) dr[c + 1] = acc[mi][j][2 * h + 1];
+                for (int h = 0; h < 2; ++h) {
+                  const int r = item.rb + 16 * mi + g4 + 8 * h, c = item.cb + 8 * j + 2 * t4;
+                  if (mi < item.mts && j < item.nts && r < valid) {
+                    float* dr = dx + (size_t)(row0 + r) * d0;
+                    if (c < d0) dr[c] = acc[mi][j][2 * h];
+                    if (c + 1 < d0) dr[c + 1] = acc[mi][j][2 * h + 1];
+                  }
                 }
-              }
+        };
+        dx_round(0);
+        if (kp > MAX_WIDTH) dx_round(MAX_WIDTH);  // an input wider than 256 (kp <= MAX_IN_WIDTH)
       } else {
+        const Item item = warp_item(M, kp);
+        float acc[2][4][4];
+        item_mma<true>(acc, item, Gs, ldg, Wt, lay.ldw[i], np);
         item_pack_f32(acc, item);
         if (i > lo) {
           item_put_f32(acc, item, [&](int r, int c, float4 v) { *reinterpret_cast<float4*>(Rf + r * ldr + c) = v; });
@@ -1110,8 +1141,8 @@ __global__ void __launch_bounds__(THREADS) dw_kernel(DwPlan p, int n) {
 // ---------------------------------------------------------------------------
 
 #define ROWS 32
-#define LDH 260   // f32 activation row stride (floats)
-#define LDW32 260 // f32 weight-chunk row stride
+#define LDH (MAX_IN_WIDTH + 4)    // f32 activation row stride (floats)
+#define LDW32 (MAX_IN_WIDTH + 4)  // f32 weight-chunk row stride
 #define KC32 32   // weight rows per chunk
 #define H_BYTES (ROWS * LDH * 4)
 #define F32_SMEM (H_BYTES + KC32 * LDW32 * 4)
@@ -1167,17 +1198,18 @@ __device__ __forceinline__ void for_tile(int rows, int cols, F fn) {
 }
 
 // H[:, :rup16(Nout)] = H[:, :Kc] @ B, B[k][j] = W[k*w_cols + j] (TRANS false)
-// or W[j*w_cols + k] (TRANS true).  Starts and ends with a block barrier.
-template <bool TRANS>
+// or W[j*w_cols + k] (TRANS true), for rup16(Nout) <= 64 QN.  Starts and
+// ends with a block barrier.
+template <bool TRANS, int QN>
 __device__ void block_gemm_f32(const float* __restrict__ W, int w_cols, int Kc, int Nout, float* H,
                                float* WS) {
   const int tid = threadIdx.x, Kp = rup16(Kc), Np = rup16(Nout);
   const int rg = tid / 64, cg = tid % 64;  // rows rg*8 .. rg*8+7, columns cg + 64q
-  float acc[8][4];
+  float acc[8][QN];
 #pragma unroll
   for (int r = 0; r < 8; ++r)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) acc[r][q] = 0.0f;
+    for (int q = 0; q < QN; ++q) acc[r][q] = 0.0f;
   for (int k0 = 0; k0 < Kp; k0 += KC32) {
     const int kc = min(KC32, Kp - k0);
     __syncthreads();
@@ -1191,22 +1223,23 @@ __device__ void block_gemm_f32(const float* __restrict__ W, int w_cols, int Kc, 
                  [&](int kk, int j, float v) { WS[kk * LDW32 + j] = v; });
     __syncthreads();
     for (int kk = 0; kk < kc; ++kk) {
-      float a[8], w[4];
+      float a[8], w[QN];
 #pragma unroll
       for (int r = 0; r < 8; ++r) a[r] = H[(rg * 8 + r) * LDH + k0 + kk];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) w[q] = WS[kk * LDW32 + cg + 64 * q];
+      for (int q = 0; q < QN; ++q)  // past 256 columns, only those in the chunk's row
+        w[q] = q < 4 || cg + 64 * q < Np ? WS[kk * LDW32 + cg + 64 * q] : 0.0f;
 #pragma unroll
       for (int r = 0; r < 8; ++r)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(a[r], w[q], acc[r][q]);
+        for (int q = 0; q < QN; ++q) acc[r][q] = fmaf(a[r], w[q], acc[r][q]);
     }
   }
   __syncthreads();
 #pragma unroll
   for (int r = 0; r < 8; ++r)
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
+    for (int q = 0; q < QN; ++q)
       if (cg + 64 * q < Np) H[(rg * 8 + r) * LDH + cg + 64 * q] = acc[r][q];
   __syncthreads();
 }
@@ -1227,7 +1260,7 @@ __global__ void __launch_bounds__(THREADS) fwd_f32_kernel(Chain ch, const float*
   for (int i = 0; i < ch.n_layers; ++i) {
     const int K = ch.dims[i], N = ch.dims[i + 1], Np = rup16(N);
     const bool last = i == ch.n_layers - 1;
-    block_gemm_f32<false>(ch.w[i], N, K, N, H, WS);
+    block_gemm_f32<false, 4>(ch.w[i], N, K, N, H, WS);
     const float* b = ch.b[i];
     for_tile(ROWS, Np, [&](int r, int c) {
       float v = 0.0f;
@@ -1259,7 +1292,7 @@ __global__ void __launch_bounds__(THREADS) bwd_rows_f32_kernel(
   load_tile(H, x, n, row0, ch.dims[0]);
   for (int i = 0; i < L - 1; ++i) {
     const int K = ch.dims[i], N = ch.dims[i + 1], Np = rup16(N);
-    block_gemm_f32<false>(ch.w[i], N, K, N, H, WS);
+    block_gemm_f32<false, 4>(ch.w[i], N, K, N, H, WS);
     float* z_out = zbuf + layer_offset(ch, i, n);
     const float* b = ch.b[i];
     for_tile(ROWS, Np, [&](int r, int c) {
@@ -1281,7 +1314,10 @@ __global__ void __launch_bounds__(THREADS) bwd_rows_f32_kernel(
     for_tile(ROWS, N, [&](int r, int c) {
       if (row0 + r < n) g_out[(size_t)(row0 + r) * N + c] = H[r * LDH + c];
     });
-    block_gemm_f32<true>(ch.w[i], N, N, K, H, WS);
+    if (Kp > MAX_WIDTH)  // dx of an input wider than 256
+      block_gemm_f32<true, (MAX_IN_WIDTH + 63) / 64>(ch.w[i], N, N, K, H, WS);
+    else
+      block_gemm_f32<true, 4>(ch.w[i], N, N, K, H, WS);
     if (i > 0) {
       const float* z_in = zbuf + layer_offset(ch, i - 1, n);
       for_tile(ROWS, Kp, [&](int r, int c) {
@@ -1385,7 +1421,7 @@ static int make_chain(Chain* ch, int n_layers, const int* dims, const void* cons
   if (n_layers < 1 || n_layers > MAX_LAYERS) return -1;
   ch->n_layers = n_layers;
   for (int i = 0; i <= n_layers; ++i) {
-    if (dims[i] < 1 || dims[i] > MAX_WIDTH) return -2;
+    if (dims[i] < 1 || dims[i] > (i ? MAX_WIDTH : MAX_IN_WIDTH)) return -2;
     ch->dims[i] = dims[i];
   }
   for (int i = 0; i < n_layers; ++i) {
@@ -1445,6 +1481,7 @@ static int make_plan_layout(Layout* lay, const Chain& ch, int cluster, int rows,
 extern "C" {
 
 int brax_fused_mlp_max_width() { return MAX_WIDTH; }
+int brax_fused_mlp_max_in_width() { return MAX_IN_WIDTH; }
 int brax_fused_mlp_max_layers() { return MAX_LAYERS; }
 int brax_fused_mlp_smem_limit() { return SMEM_LIMIT; }
 

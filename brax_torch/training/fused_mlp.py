@@ -28,6 +28,17 @@ Semantics of the matmul precision (`matmul_dtype`):
   torch.float32   plain f32 products.
 The backward rounds the incoming gradient and the activations to bf16 for
 its matmuls, as the TPU kernel's backward does; db sums the f32 gradient.
+
+Parity of relu chains in bf16: the kernel and the plain version round the
+same values but sum in other orders, so an activation may round to a
+neighbouring bf16 number and move the next pre-activation by ~1e-3; where
+that crosses 0, relu' flips and the row's gradient differs by its whole
+size.  relu is held in bf16 forward on every row, backward in f32 mode on
+the rows whose pre-activations lie clear of 0, and backward in bf16 on
+every row with dx off on no more rows than the plain version's bf16 and f32
+pre-activations flip at the kink and each dW and db within the plain bf16
+version's own error against f32 (tests/test_torch_cuda.py, chip_smoke.py);
+swish, which has no kink, holds the same shapes in bf16 whole.
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+from pathlib import Path
 from typing import List, Sequence, Tuple
 
 import torch
@@ -45,8 +57,10 @@ from brax_torch import cuda_build
 Tensor = torch.Tensor
 
 SOURCE = cuda_build.CSRC / "fused_mlp.cu"
-# must equal MAX_WIDTH / MAX_LAYERS / SMEM_LIMIT in fused_mlp.cu (checked at load)
-MAX_WIDTH, MAX_LAYERS = 256, 8
+# must equal MAX_WIDTH / MAX_IN_WIDTH / MAX_LAYERS / SMEM_LIMIT in fused_mlp.cu
+# (checked at load).  Every layer's output is at most MAX_WIDTH wide; the
+# input may be up to MAX_IN_WIDTH (SAC's critic: obs and action together)
+MAX_WIDTH, MAX_IN_WIDTH, MAX_LAYERS = 256, 352, 8
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on an H100
 # fused_mlp.cu's most CTAs in a cluster (pipeline stages), and its row
 # tiles in the order plan() tries them
@@ -180,7 +194,8 @@ def layout(dims: Sequence[int], rows: int, x_stages: int, backward: bool) -> dic
     kpad = [_rup(d, 16) for d in dims[:-1]]
     npad = [_rup(d, 16) for d in dims[1:]]
     kmax, nmax = max(kpad), max(npad)
-    lda, ldr, ldg = kmax + 8, kmax + 4, nmax + 8
+    # the f32 tiles (ldr) hold dL/da_{i+1} and act'(z_i), never the input's width
+    lda, ldr, ldg = kmax + 8, min(kmax, MAX_WIDTH) + 4, nmax + 8
     fwd = rows * lda * 2 + x_stages * _rup(rows * dims[0] * 4, 16)
     bwd = 2 * rows * ldr * 4 + rows * ldg * 2 + 2 * MAX_WIDTH * 4
     tiles = max(fwd, bwd) if backward else fwd
@@ -269,7 +284,8 @@ def plan(dims: Sequence[int], rows: int, sm_count: int, backward: bool = False,
 # ---------------------------------------------------------------------------
 
 
-def _setup(lib, path) -> None:
+def _declare(lib) -> None:
+    """The C interface's argument and result types."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.brax_fused_mlp_fwd.argtypes = [p, p, i, i, p, p, p, i, i, i, i, i, i, p]
     lib.brax_fused_mlp_fwd.restype = i
@@ -282,11 +298,16 @@ def _setup(lib, path) -> None:
     lib.brax_fused_mlp_bwd_f32.restype = i
     lib.brax_fused_mlp_max_clusters.argtypes = [i, i, i]
     lib.brax_fused_mlp_max_clusters.restype = i
+
+
+def _setup(lib, path) -> None:
+    _declare(lib)
     for name, want in (("brax_fused_mlp_max_width", MAX_WIDTH),
+                       ("brax_fused_mlp_max_in_width", MAX_IN_WIDTH),
                        ("brax_fused_mlp_max_layers", MAX_LAYERS),
                        ("brax_fused_mlp_smem_limit", SMEM_LIMIT)):
         getter = getattr(lib, name)
-        getter.argtypes, getter.restype = [], i
+        getter.argtypes, getter.restype = [], ctypes.c_int
         if getter() != want:
             raise RuntimeError(f"{name} in {path} disagrees with fused_mlp.py")
 
@@ -297,6 +318,31 @@ _LIBRARY = cuda_build.Library(SOURCE, _setup)
 def ptxas_report() -> str:
     """nvcc's ptxas output for the loaded kernels (registers, spills)."""
     return _LIBRARY.ptxas_report()
+
+
+_OTHER_LIBRARIES = {}
+
+
+@contextlib.contextmanager
+def built_from(source):
+    """The wrappers launch the kernels built from `source` inside the
+    block: another fused_mlp.cu that exports the same C interface and lays
+    out shared memory as `plan` reckons (a parent commit's, say, for
+    `brax_torch.tools.fused_turns`).  Its limits are not checked."""
+    global _LIBRARY
+    prev, source = _LIBRARY, Path(source).resolve()
+    if source != SOURCE.resolve():
+        if source not in _OTHER_LIBRARIES:
+            _OTHER_LIBRARIES[source] = cuda_build.Library(source, lambda lib, path: _declare(lib))
+        _LIBRARY = _OTHER_LIBRARIES[source]
+    _max_clusters.cache_clear()
+    card_plan.cache_clear()
+    try:
+        yield
+    finally:
+        _LIBRARY = prev
+        _max_clusters.cache_clear()
+        card_plan.cache_clear()
 
 
 # ---------------------------------------------------------------------------
@@ -315,10 +361,13 @@ def _check(x2: Tensor, kernels: Sequence[Tensor], biases: Sequence[Tensor],
         raise NotImplementedError(
             f"a chain of {len(kernels)} layers; the fused kernel holds {MAX_LAYERS}")
     dims = [x2.shape[1]] + [w.shape[1] for w in kernels]
-    for d in dims:
+    if dims[0] > MAX_IN_WIDTH:
+        raise NotImplementedError(
+            f"input width {dims[0]}; the fused kernel holds inputs up to {MAX_IN_WIDTH} wide")
+    for d in dims[1:]:
         if d > MAX_WIDTH:
             raise NotImplementedError(
-                f"width {d}; the fused kernel holds widths up to {MAX_WIDTH}")
+                f"width {d}; the fused kernel holds layer widths up to {MAX_WIDTH}")
     tensors = [x2, *kernels, *biases, *extra]
     device = x2.device
     if device.type != "cuda" or any(t.device != device for t in tensors):

@@ -162,11 +162,28 @@
    nothing under no_grad; on ant also over APG_GRAD_STEPS steps by
    grad_parity.hold_rollout_grads' per-env rules, and timed; the same on
    the v2 ant at 2048 envs against autograd through five pipeline steps;
-   then apg.train on v1 ant (48 steps) and v2 ant (24 steps) at 2048 envs,
-   an epoch each plain and truncated every 16 steps, with the exact launch
+   then apg.train on v1 ant (32 steps) and v2 ant (16 steps) at 2048 envs,
+   an epoch each plain and truncated every 8 steps, with the exact launch
    counts and backward runs, finite nonzero gradients, moved parameters
    and a finite eval reward, and an {"apg": ...} line (seconds of rollout,
    backward and update, launches, the checks, peak memory);
+15c. SAC: the fused MLP kernels at SAC's shapes (the critics' 257-wide
+   input on humanoid, 24 on halfcheetah; the (256, 256) relu policies with
+   34- and 12-wide heads; 256 rows, the SGD batch, and 128, the acting
+   batch) against their plain versions by relu's rule (bf16 forward on
+   every row, the f32 backward on the rows clear of the kink, the bf16
+   backward on every row with dx off on no more rows than bf16 and f32
+   flip at the kink and dW, db within bf16's own error, the bf16 forward
+   and backward on every row with swish), each timed beside its
+   bound and the cuBLAS chain; then sac.train at tools/run_curves.py's
+   humanoid SAC recipe (copied into SAC_RECIPES; the full 1,048,576-row
+   replay buffer) cut to its prefill, SAC_TRAINING_STEPS training steps and
+   one evaluation, at the halfcheetah recipe, and on the v2 ant, with exact
+   launch counts (per training step 1 physics, 37 fused forward and 20
+   backward launches at 4 SGD steps), finite losses, moved parameters,
+   env-steps/s, host seconds of the prefill, training steps and eval, peak
+   memory, a profile of one humanoid training step, and a {"sac": ...}
+   line;
 16. reads the launch-overhead probe's counts, set to 0 before step 3, to
    show that no env or PPO path ran its kernels; holds them
    (brax_torch/csrc/probe.cu) against their plain versions, counts the
@@ -174,7 +191,8 @@
    drives the probe (brax_torch.tools.probe_overhead.measure), which times
    every launch both issued by the host and replayed from a CUDA graph;
 17. prints one JSON line listing every kernel (pbd_step's and gen_step's
-   with the backward route their Functions take) and, last,
+   with the backward route their Functions take; the fused kernels' with
+   SAC's shapes and launches) and, last,
    {"ok": true, "device": {...}}.
 
 The CUDA sources are built at the start, one nvcc each, in parallel (the
@@ -200,7 +218,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from brax_torch import cuda_build, envs
 from brax_torch.braxlines.defaults import DEFAULT_PPO_PARAMS
 from brax_torch.sim import kernels
-from brax_torch.tools import grad_parity
+from brax_torch.tools import fused_turns, grad_parity
 from brax_torch.tools import probe_overhead as probe
 from brax_torch.tools.pbd_parity import (MAX_OUTLIERS, PERTURBED_COPIES, ROUNDING_NOISE,
                                          RULES, SPRING_SCENES, STATES, TOLERANCE, capcap_share,
@@ -213,6 +231,8 @@ from brax_torch.training.agents.apg import networks as apg_networks
 from brax_torch.training.agents.apg import train as apg
 from brax_torch.training.agents.ppo import networks as ppo_networks
 from brax_torch.training.agents.ppo import train as ppo
+from brax_torch.training.agents.sac import networks as sac_networks
+from brax_torch.training.agents.sac import train as sac
 from brax_torch.v2 import envs as v2_envs
 from brax_torch.v2.generalized import kernels as gen_kernels
 
@@ -224,18 +244,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 
-# the PPO ant recipe's MLP chains (make_ppo_networks' defaults, 8 actions):
-# v1 ant's 87-wide observation, and v2 ant's 27-wide one ("_v2")
-CHAINS = {"value": [87] + [256] * 5 + [1], "policy": [87] + [32] * 4 + [16],
-          "value_v2": [27] + [256] * 5 + [1], "policy_v2": [27] + [32] * 4 + [16],
-          "value_humanoid": [240] + [256] * 5 + [1],
-          "policy_humanoid": [240] + [32] * 4 + [34],
-          "value_halfcheetah": [18] + [256] * 5 + [1],
-          "policy_halfcheetah": [18] + [32] * 4 + [12],
-          "value_grasp": [132] + [256] * 5 + [1],
-          "policy_grasp": [132] + [32] * 4 + [78],
-          "value_fetch": [101] + [256] * 5 + [1],
-          "policy_fetch": [101] + [32] * 4 + [20]}
+# the PPO recipes' MLP chains (make_ppo_networks' defaults): v1 ant's 87-wide
+# observation, v2 ant's 27-wide one ("_v2"), humanoid's, halfcheetah's,
+# grasp's and fetch's (brax_torch.tools.fused_turns.CHAINS)
+CHAINS = fused_turns.CHAINS
 # (chain, rows) as the PPO paths launch them: minibatch [T=5, 1024] losses
 # (5120 rows), the rollout's policy at 2048 envs, the bootstrap value at 1024
 CHAIN_SHAPES = [(c + v, r) for v in ("", "_v2")
@@ -355,15 +367,48 @@ SPRING_ANT = envs.create_fn("ant", legacy_spring=True, episode_length=None, auto
 # APG (the physics kernels forward, the autograd Functions' backwards): the
 # main paths' batch and eval batch, each epoch's steps (cut from the
 # recipes' 1000 for time: 64 and 32 took the APG phases 147-205 s, over the
-# 3 minutes they may take; a step's backward is 0.5-0.7 s on v1, 0.8-1.2 s
-# on v2), the truncation of the second epoch, the learner CLI's learning
+# 3 minutes they may take, 48 and 24 took 167 s; cut to 32 and 16 to make
+# room for the SAC phases in the time limit; a step's backward is 0.5-0.7 s
+# on v1, 0.8-1.2 s on v2), the truncation of the second epoch (8: inside
+# both epochs, so steps run on from a cut state), the learner CLI's learning
 # rate and clip (brax_tpu/training/learner.py:47-48), and the gradient
 # checks' steps over which the kernel's trajectory and the twin's part
 APG_ENVS, APG_EVAL_ENVS = 2048, 128
-APG_EPISODE = {"v1 ant": 48, "v2 ant": 24}
-APG_TRUNCATION = 16
+APG_EPISODE = {"v1 ant": 32, "v2 ant": 16}
+APG_TRUNCATION = 8
 APG_RECIPE = dict(learning_rate=5e-4, max_gradient_norm=1e9, normalize_observations=True)
 APG_GRAD_STEPS = 4
+# SAC: tools/run_curves.py's SAC recipes (SAC_CONFIGS and SAC_COMMON, copied:
+# the port imports nothing of tools/), each main path cut only in
+# num_timesteps (the prefill and SAC_TRAINING_STEPS training steps) and
+# num_evals (1: one evaluation, at the end); the v2 ant runs the halfcheetah
+# recipe for 2 training steps (gen_step under SAC)
+SAC_RECIPES = {
+    "humanoid": dict(num_timesteps=5 * 1048576, reward_scaling=10.0, discounting=0.99,
+                     learning_rate=6e-4, num_envs=128, batch_size=256, min_replay_size=8192,
+                     max_replay_size=1048576, grad_updates_per_step=4, episode_length=1000,
+                     normalize_observations=True, num_evals=21),
+    "halfcheetah": dict(num_timesteps=5 * 1048576, reward_scaling=5.0, discounting=0.99,
+                        learning_rate=6e-4, num_envs=128, batch_size=256, min_replay_size=8192,
+                        max_replay_size=1048576, grad_updates_per_step=4, episode_length=1000,
+                        normalize_observations=True, num_evals=21),
+}
+SAC_TRAINING_STEPS = {"humanoid": 24, "halfcheetah": 4, "v2 ant": 2}
+# the chains SAC launches (make_sac_networks' (256, 256) relu): the critics
+# over obs and action (humanoid 240 + 17, halfcheetah 18 + 6), the policies
+# with their 2 x actions heads; at the SGD batch (256 rows) and the acting
+# and eval batch (128)
+SAC_CHAINS = {"q_humanoid": [257, 256, 256, 1], "q_halfcheetah": [24, 256, 256, 1],
+              "sac_policy_humanoid": [240, 256, 256, 34],
+              "sac_policy_halfcheetah": [18, 256, 256, 12]}
+SAC_SHAPES = [("q_humanoid", 256), ("q_halfcheetah", 256), ("sac_policy_humanoid", 256),
+              ("sac_policy_humanoid", 128), ("sac_policy_halfcheetah", 256),
+              ("sac_policy_halfcheetah", 128)]
+# relu's kink (tests/test_torch_cuda.py): relu is held in bf16 forward and in
+# f32 mode backward on the rows whose plain pre-activations all lie further
+# than RELU_KINK from 0, in bf16 backward on every row by the bounds of
+# check_relu_bf16_bwd; the bf16 backward whole with swish at the same shapes
+RELU_KINK = 1e-5
 # the PBD kernel's batch sizes: PPO's eval, PPO's training batch, env.step's
 PBD_TIMING_ENVS = (PPO_EVAL_ENVS, 2048, N_ENVS)
 PROFILE_EPISODE = 10
@@ -755,7 +800,7 @@ def v2_main_path(name, tag):
 def chain_inputs(name, rows, seed=0):
     """A chain's input, lecun-uniform weights, small biases and an output
     gradient of a mean loss (1 / rows scale), on the card."""
-    dims = CHAINS[name]
+    dims = CHAINS[name] if name in CHAINS else SAC_CHAINS[name]
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     x = torch.randn((rows, dims[0]), generator=gen, device=DEVICE)
     ws = [(torch.rand((a, b), generator=gen, device=DEVICE) * 2 - 1) * (3.0 / a) ** 0.5
@@ -765,20 +810,29 @@ def chain_inputs(name, rows, seed=0):
     return dims, x, ws, bs, g
 
 
-def check_chain(name, rows, bf16):
-    """Kernel against plain version, forward and backward; raises on any
-    output outside the tolerance.  Returns {"fwd"|"bwd": error summary}."""
+def check_chain(name, rows, bf16, activation="swish", kinds=("fwd", "bwd"),
+                clear_of_kink=False):
+    """Kernel against plain version, forward and backward (`kinds`); raises
+    on any output outside the tolerance.  With `clear_of_kink`, on the rows
+    whose plain f32 pre-activations all lie further than RELU_KINK from 0
+    (relu's rule, tests/test_torch_cuda.py).  Returns {kind: error
+    summary}."""
     dims, x, ws, bs, g = chain_inputs(name, rows)
-    y = fused_mlp.chain_fwd(x, ws, bs, "swish", bf16)
-    dx, dws, dbs = fused_mlp.chain_bwd(x, ws, bs, g, "swish", bf16)
+    if clear_of_kink:
+        zs = fused_mlp._forward_plain(x, ws, bs, activation, False, keep=True)[2]
+        clear = torch.stack([z.abs().amin(dim=1) for z in zs]).amin(dim=0) > RELU_KINK
+        x, g = x[clear].contiguous(), g[clear].contiguous()
+    outputs = {}
+    if "fwd" in kinds:
+        y = fused_mlp.chain_fwd(x, ws, bs, activation, bf16)
+        outputs["fwd"] = [("y", y, fused_mlp.chain_fwd_plain(x, ws, bs, activation, bf16))]
+    if "bwd" in kinds:
+        dx, dws, dbs = fused_mlp.chain_bwd(x, ws, bs, g, activation, bf16)
+        pdx, pdws, pdbs = fused_mlp.chain_bwd_plain(x, ws, bs, g, activation, bf16)
+        outputs["bwd"] = ([("dx", dx, pdx)]
+                          + [(f"dW{i}", a, b) for i, (a, b) in enumerate(zip(dws, pdws))]
+                          + [(f"db{i}", a, b) for i, (a, b) in enumerate(zip(dbs, pdbs))])
     torch.cuda.synchronize(DEVICE)
-    y_p = fused_mlp.chain_fwd_plain(x, ws, bs, "swish", bf16)
-    pdx, pdws, pdbs = fused_mlp.chain_bwd_plain(x, ws, bs, g, "swish", bf16)
-    outputs = {
-        "fwd": [("y", y, y_p)],
-        "bwd": [("dx", dx, pdx)] + [(f"dW{i}", a, b) for i, (a, b) in enumerate(zip(dws, pdws))]
-        + [(f"db{i}", a, b) for i, (a, b) in enumerate(zip(dbs, pdbs))],
-    }
     summary = {}
     for kind, pairs in outputs.items():
         worst, max_err, rel = 0.0, 0.0, 0.0
@@ -790,34 +844,80 @@ def check_chain(name, rows, bf16):
                 rtol, atol = F32_TOL[kind]
                 frac = float((err / (atol + rtol * want.abs())).max())
             if frac > 1:
-                raise AssertionError(f"fused_mlp {kind} {name}@{rows} {'bf16' if bf16 else 'f32'}: "
-                                     f"{label} max |kernel - plain| {float(err.max()):.3e} is "
-                                     f"{frac:.2f}x the tolerance")
+                raise AssertionError(f"fused_mlp {kind} {name}@{rows} {'bf16' if bf16 else 'f32'} "
+                                     f"{activation}: {label} max |kernel - plain| "
+                                     f"{float(err.max()):.3e} is {frac:.2f}x the tolerance")
             worst = max(worst, frac)
             max_err = max(max_err, float(err.max()))
             rel = max(rel, float(err.mean() / want.abs().mean()))
         summary[kind] = {"max_abs_err": max_err, "max_mean_rel_err": rel,
-                         "fraction_of_tolerance": worst}
+                         "fraction_of_tolerance": worst, "rows_held": x.shape[0]}
     return summary
 
 
-def chain_bound(dims, rows, bf16, backward):
+def check_relu_bf16_bwd(name, rows):
+    """relu's bf16 backward on every row (the mode SAC's path launches)
+    against its plain version, held by what bf16 rounding moves at the kink:
+    rows_off, the rows whose dx differs from the plain version's by more
+    than BF16_REL of its largest value, may be at most rows_flipped, the
+    rows on which the plain version's bf16 and f32 pre-activations put some
+    unit on other sides of 0; each dW's and db's relative norm error may be
+    at most the plain bf16 version's own against the plain f32 one, or
+    F32_TOL's rtol where that is smaller (the last db: both sum the same
+    f32 values, in other orders).  A kernel wrong on a tile, a column or
+    relu' breaks every row it touches.  Returns {"bwd": summary}."""
+    dims, x, ws, bs, g = chain_inputs(name, rows)
+    got = fused_mlp.chain_bwd(x, ws, bs, g, "relu", True)
+    plain = fused_mlp.chain_bwd_plain(x, ws, bs, g, "relu", True)
+    plain_f32 = fused_mlp.chain_bwd_plain(x, ws, bs, g, "relu", False)
+    z16, z32 = (fused_mlp._forward_plain(x, ws, bs, "relu", bf16, keep=True)[2]
+                for bf16 in (True, False))
+    torch.cuda.synchronize(DEVICE)
+    flipped = torch.stack([((a > 0) != (b > 0)).any(dim=1) for a, b in zip(z16, z32)])
+    rows_flipped = int(flipped.any(dim=0).sum())
+    dx_err = (got[0] - plain[0]).abs()
+    rows_off = int((dx_err.amax(dim=1) > BF16_REL * plain[0].abs().max()).sum())
+    norm_err = lambda a, b: float((a - b).norm() / b.norm())
+    outputs = [(f"{p}{i}", a, b, c) for p, j in (("dW", 1), ("db", 2))
+               for i, (a, b, c) in enumerate(zip(got[j], plain[j], plain_f32[j]))]
+    norms = {label: (norm_err(a, b), max(norm_err(b, c), F32_TOL["bwd"][0]))
+             for label, a, b, c in outputs}
+    summary = {"rows_held": rows, "rows_off": rows_off, "rows_flipped": rows_flipped,
+               "max_abs_err": float(dx_err.max()),
+               "norm_err_and_limit": norms,
+               "fraction_of_tolerance": max(rows_off / max(rows_flipped, 1),
+                                            *(e / lim for e, lim in norms.values()))}
+    bad = [label for label, (e, lim) in norms.items() if e > lim]
+    if rows_off > rows_flipped or bad:
+        raise AssertionError(f"fused_mlp bwd {name}@{rows} bf16 relu: {rows_off} rows of dx off "
+                             f"(at most {rows_flipped}); relative norm errors over their limits: "
+                             f"{ {k: norms[k] for k in bad} }")
+    return {"bwd": summary}
+
+
+# elementwise operations of an activation and of its derivative, per element
+ACT_OPS = {"swish": (4, 6), "relu": (1, 1)}
+
+
+def chain_bound(dims, rows, bf16, backward, activation="swish"):
     """(bound_ms, bound_by, ops, bytes) of one chain call.
 
     Matmul operations at the bf16 tensor-core or the fp32 rate; elementwise
-    ones (bias add 1, swish 4, swish' 6 and its product 1, db's sum 1 per
-    element) at the fp32 rate.  Bytes: each input read once, each output
+    ones (bias add 1, the activation (ACT_OPS: swish 4, relu 1), its
+    derivative (swish' 6, relu' 1) and the product with it 1, db's sum 1
+    per element) at the fp32 rate.  Bytes: each input read once, each output
     written once, float32.  The backward recomputes the forward but its last
     layer, then runs dW and dx for every layer."""
     pairs = [a * b for a, b in zip(dims[:-1], dims[1:])]
     outs, hidden = sum(dims[1:]), sum(dims[1:-1])
+    act, act_grad = ACT_OPS[activation]
     if backward:
         mm = 2 * rows * (sum(pairs[:-1]) + 2 * sum(pairs))
-        elem = rows * ((outs - dims[-1]) + 4 * hidden + 7 * hidden + outs)
+        elem = rows * ((outs - dims[-1]) + act * hidden + (act_grad + 1) * hidden + outs)
         n_bytes = 4 * (2 * rows * dims[0] + rows * dims[-1] + 2 * (sum(pairs) + outs))
     else:
         mm = 2 * rows * sum(pairs)
-        elem = rows * (outs + 4 * hidden)
+        elem = rows * (outs + act * hidden)
         n_bytes = 4 * (rows * dims[0] + sum(pairs) + outs + rows * dims[-1])
     ops_ms = (mm / (BF16_OPS_PER_S if bf16 else FP32_OPS_PER_S) + elem / FP32_OPS_PER_S) * 1e3
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -825,7 +925,7 @@ def chain_bound(dims, rows, bf16, backward):
     return max(ops_ms, bytes_ms), bound_by, mm + elem, n_bytes
 
 
-def time_chain(name, rows, bf16):
+def time_chain(name, rows, bf16, activation="swish"):
     """ms per call of each kernel and of the same chain as F.linear calls
     (cuBLAS, a yardstick) in the same precision, replayed from a CUDA graph
     (GRAPH_CALLS calls per graph: the card's time) and issued by the host
@@ -834,17 +934,19 @@ def time_chain(name, rows, bf16):
     cuBLAS backward replayed is its forward + autograd backward graph less
     its forward graph (a backward captures only beside its forward)."""
     dims, x, ws, bs, g = chain_inputs(name, rows)
-    fwd = lambda *_: fused_mlp.chain_fwd(x, ws, bs, "swish", bf16)
-    bwd = lambda *_: fused_mlp.chain_bwd(x, ws, bs, g, "swish", bf16)
+    fwd = lambda *_: fused_mlp.chain_fwd(x, ws, bs, activation, bf16)
+    bwd = lambda *_: fused_mlp.chain_bwd(x, ws, bs, g, activation, bf16)
     t = {
         "fwd": probe.graph_us(fwd, GRAPH_CALLS) / 1e3,
         "bwd": probe.graph_us(bwd, GRAPH_CALLS) / 1e3,
         "fwd_host": cuda_ms(fwd, 200, 20),
         "bwd_host": cuda_ms(bwd, 200, 20),
-        "plain_fwd": cuda_ms(lambda: fused_mlp.chain_fwd_plain(x, ws, bs, "swish", bf16), 50, 5),
-        "plain_bwd": cuda_ms(lambda: fused_mlp.chain_bwd_plain(x, ws, bs, g, "swish", bf16),
+        "plain_fwd": cuda_ms(lambda: fused_mlp.chain_fwd_plain(x, ws, bs, activation, bf16),
+                             50, 5),
+        "plain_bwd": cuda_ms(lambda: fused_mlp.chain_bwd_plain(x, ws, bs, g, activation, bf16),
                              50, 5),
     }
+    act = {"swish": F.silu, "relu": F.relu}[activation]
     dt = torch.bfloat16 if bf16 else torch.float32
     wl = [w.t().contiguous().to(dt).requires_grad_() for w in ws]
     bl = [b.to(dt).requires_grad_() for b in bs]
@@ -854,7 +956,7 @@ def time_chain(name, rows, bf16):
         for i, (w, b) in enumerate(zip(wl, bl)):
             h = F.linear(h, w, b)
             if i < len(wl) - 1:
-                h = F.silu(h)
+                h = act(h)
         return h
 
     def cublas_fwd(*_):
@@ -965,10 +1067,12 @@ def check_ppo_run(label, metrics, recorder, policy_params, launches, want):
     return min(moved.values())
 
 
-def profile_training_step(fused, environment="ant", preset="ant"):
+def profile_training_step(fused, environment="ant", preset="ant", run=None, prefix="ppo",
+                          parts=("rollout", "sgd")):
     """Device time, device-op count and top kernels of the second of two
     training steps (the host range "ppo/training_step", which ends in a
-    synchronise), and the host time of its rollout and SGD ranges.
+    synchronise), and the host time of its rollout and SGD ranges; or of
+    the last "{prefix}/training_step" of `run()` and its `parts`' ranges.
 
     The episode is cut to PROFILE_EPISODE steps so that the run's one
     evaluation stays short; a training step does the same work at any
@@ -976,13 +1080,16 @@ def profile_training_step(fused, environment="ant", preset="ant"):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run_ppo(fused, steps=2, environment=environment, preset=preset,
-                episode_length=PROFILE_EPISODE)
+        if run is None:
+            run_ppo(fused, steps=2, environment=environment, preset=preset,
+                    episode_length=PROFILE_EPISODE)
+        else:
+            run()
     events = prof.events()
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     ranges = lambda name: sorted((e for e in events if e.name == name and e.device_type == cpu),
                                  key=lambda e: e.time_range.start)
-    step = ranges("ppo/training_step")[-1]
+    step = ranges(f"{prefix}/training_step")[-1]
     t0, t1 = step.time_range.start, step.time_range.end
     inside = lambda e: t0 <= e.time_range.start <= t1
     # the profiler mirrors each record_function range (ours, the optimizer's)
@@ -994,8 +1101,8 @@ def profile_training_step(fused, environment="ant", preset="ant"):
     for e in ops:
         n, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    host = {name.split("/")[1]: sum(e.time_range.elapsed_us() for e in ranges(name) if inside(e))
-            for name in ("ppo/rollout", "ppo/sgd")}
+    host = {part: sum(e.time_range.elapsed_us() for e in ranges(f"{prefix}/{part}") if inside(e))
+            for part in parts}
     host_by_name = {}
     for e in events:
         if e.device_type == cpu and inside(e) and not getattr(e, "is_user_annotation", False):
@@ -1016,10 +1123,10 @@ def print_profile(tag, label, mode, prof):
     if not prof["device_us"]:
         print(f"profile {tag}: {label}fused_mlp {mode}: no device time recorded (not measured)")
         return prof
+    parts = " and ".join(f"{k} {us / 1e3:.1f} ms" for k, us in prof["host_us"].items())
     print(f"profile {tag}: {label}fused_mlp {mode}: one training step "
-          f"{prof['step_us'] / 1e3:.1f} ms (host), of it rollout "
-          f"{prof['host_us']['rollout'] / 1e3:.1f} ms and sgd {prof['host_us']['sgd'] / 1e3:.1f} "
-          f"ms; device busy {prof['device_us'] / 1e3:.1f} ms "
+          f"{prof['step_us'] / 1e3:.1f} ms (host), of it {parts}; device busy "
+          f"{prof['device_us'] / 1e3:.1f} ms "
           f"({prof['device_us'] / prof['step_us']:.3f}), {prof['device_ops']} device ops "
           f"(kernels, copies)")
     for kname, (n, us) in prof["top"]:
@@ -1963,6 +2070,172 @@ def apg_paths(tag, phase, pbd_states, gen):
             "v2 ant": v2}
 
 
+def sac_chains(tag, phase):
+    """The fused kernels at SAC's shapes (SAC_SHAPES; relu): the bf16
+    forward on every row, the f32 backward on the rows clear of relu's kink,
+    the bf16 backward on every row by check_relu_bf16_bwd's bounds, and the
+    bf16 forward and backward on every row with swish (no kink);
+    each shape's launch, and its times (graph-replayed and host-issued,
+    relu, bf16) beside its bound, its plain version and the cuBLAS chain."""
+    phase("SAC: fused Q-route parity and timings")
+    checks, times, bounds, plans = {}, {}, {}, {}
+    for name, rows in SAC_SHAPES:
+        checks[name, rows] = c = {
+            "relu_bf16": check_chain(name, rows, True, "relu", kinds=("fwd",)),
+            "relu_f32_clear_of_kink": check_chain(name, rows, False, "relu",
+                                                  clear_of_kink=True),
+            "swish_bf16": check_chain(name, rows, True, "swish")}
+        for mode, r in c.items():
+            for kind, e in r.items():
+                print(f"parity fused_mlp_{kind} {name}@{rows} {mode}: max|kernel - plain| = "
+                      f"{e['max_abs_err']:.3e} over {e['rows_held']} rows, mean|err|/mean|plain| "
+                      f"up to {e['max_mean_rel_err']:.3e}, {e['fraction_of_tolerance']:.3f} of the "
+                      f"tolerance")
+        c["relu_bf16_every_row"] = r = check_relu_bf16_bwd(name, rows)
+        e = r["bwd"]
+        print(f"parity fused_mlp_bwd {name}@{rows} relu_bf16_every_row: dx off on "
+              f"{e['rows_off']} of {rows} rows (at most {e['rows_flipped']}, the rows where bf16 "
+              f"and f32 put a pre-activation on other sides of 0); relative norm error and its "
+              f"limit " + ", ".join(f"{k} {a:.2e} / {b:.2e}"
+                                    for k, (a, b) in e["norm_err_and_limit"].items())
+              + f"; {e['fraction_of_tolerance']:.3f} of the tolerance")
+        times[name, rows] = t = time_chain(name, rows, True, "relu")
+        for kind in ("fwd", "bwd"):
+            plans[kind, name, rows] = {k: v for k, v in fused_mlp.card_plan(
+                tuple(SAC_CHAINS[name]), rows, DEVICE, kind == "bwd").items() if k != "scratch"}
+            bounds[kind, name, rows] = b = chain_bound(SAC_CHAINS[name], rows, True, kind == "bwd",
+                                                       "relu")
+            print(f"launch fused_mlp_{kind} {name}@{rows} bf16: {plans[kind, name, rows]}")
+            print(f"timing {tag}: fused_mlp_{kind} {name}@{rows} bf16 relu: kernel "
+                  f"{t[kind]:.4f} ms graph-replayed ({t[kind + '_host']:.4f} host-issued), plain "
+                  f"{t['plain_' + kind]:.4f} ms, F.linear chain (cuBLAS) "
+                  f"{t['cublas_' + kind]:.4f} ms graph-replayed "
+                  f"({t['cublas_' + kind + '_host']:.4f} host-issued); bound {b[0]:.5f} ms by "
+                  f"{b[1]} ({b[2]:.4g} ops, {b[3]} bytes)")
+    return {"checks": checks, "times": times, "bounds": bounds, "plans": plans}
+
+
+def run_sac(recipe_name, environment, steps, **kw):
+    """sac.train at SAC_RECIPES[recipe_name] cut to the prefill and `steps`
+    training steps and one evaluation (`kw` overrides more).  Returns (the
+    settings, the cuts, train's result)."""
+    p = dict(SAC_RECIPES[recipe_name])
+    p.update(kw)
+    prefill = -(-p["min_replay_size"] // p["num_envs"])
+    cut = {"num_timesteps": (prefill + steps) * p["num_envs"] * p.get("action_repeat", 1),
+           "num_evals": 1}
+    p.update(cut)
+    return p, cut, sac.train(environment, seed=0, device=DEVICE, **p)
+
+
+def sac_launches(p, steps):
+    """The launches of a SAC run: the policy and the physics once per
+    prefill actor step, then per training step one actor step and
+    grad_updates_per_step SGD steps of 9 forward launches (the policy in
+    each of the three losses, the critics in the critic and actor losses,
+    the target critics) and 5 backward (the critics in the critic and actor
+    losses, the policy in the actor's), then one evaluation's steps."""
+    prefill = -(-p["min_replay_size"] // p["num_envs"])
+    gu, eval_steps = p["grad_updates_per_step"], p["episode_length"]
+    return {"fused_mlp_fwd": prefill + steps * (1 + 9 * gu) + eval_steps,
+            "fused_mlp_bwd": steps * 5 * gu, "physics": prefill + steps + eval_steps}
+
+
+def sac_main_path(tag, label, environment, recipe_name):
+    """`sac.train` on `environment` at SAC_RECIPES[recipe_name], cut to
+    SAC_TRAINING_STEPS[label] training steps and one evaluation: launch
+    counts (set to 0 just before, read just after) equal to sac_launches,
+    finite losses and eval reward, every parameter moved, the replay
+    buffer's cursors; env-steps/s, host seconds of the prefill, the
+    training steps and the evaluation, and peak memory."""
+    steps = SAC_TRAINING_STEPS[label]
+    physics = gen_kernels.gen_step_soa if label.startswith("v2") else kernels.pbd_step_launch
+    recorder = InitRecorder(sac_networks.make_sac_networks, ("policy", "q"))
+    fused_mlp.chain_fwd.launches = fused_mlp.chain_bwd.launches = 0
+    kernels.pbd_step_launch.launches = gen_kernels.gen_step_soa.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    p, cut, (_, (_, params), metrics) = run_sac(recipe_name, environment, steps,
+                                                network_factory=recorder.factory)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"fused_mlp_fwd": fused_mlp.chain_fwd.launches,
+                "fused_mlp_bwd": fused_mlp.chain_bwd.launches, "physics": physics.launches}
+    want = sac_launches(p, steps)
+    if launches != want:
+        raise AssertionError(f"SAC {label}: launches {launches}, expected {want}")
+    losses = {k: metrics[f"training/{k}"] for k in ("critic_loss", "actor_loss", "alpha_loss",
+                                                    "alpha")}
+    reward = metrics["eval/episode_reward"]
+    if not all(np.isfinite(v) for v in (*losses.values(), reward)):
+        raise AssertionError(f"SAC {label}: losses {losses}, eval reward {reward}")
+    nets = recorder.networks
+    now = {"policy": dict(nets.policy_network.mlp.named_parameters()),
+           "q": dict(nets.q_network.module.named_parameters())}
+    moved = {f"{side}.{k}": float((now[side][k].detach() - v).abs().max())
+             for side in ("policy", "q") for k, v in recorder.initial[side].items()}
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"SAC {label}: parameters that did not change: "
+                             f"{[k for k, v in moved.items() if not v > 0]}")
+    if any(not torch.equal(params[k], v.detach()) for k, v in now["policy"].items()):
+        raise AssertionError(f"SAC {label}: train returned other policy params than it trained")
+    prefill = -(-p["min_replay_size"] // p["num_envs"])
+    rows = (prefill + steps) * p["num_envs"]
+    if (metrics["training/buffer_current_size"] > rows
+            or metrics["training/buffer_current_size"] <= prefill * p["num_envs"]):
+        raise AssertionError(f"SAC {label}: buffer size {metrics['training/buffer_current_size']}")
+    epoch_s = steps * p["num_envs"] / metrics["training/sps"]
+    record = {"recipe": recipe_name, "cut": cut, "training_steps": steps,
+              "prefill_actor_steps": prefill, "seconds": seconds, "launches": launches,
+              "expected_launches": want, "physics_kernel": physics.__name__,
+              "losses": losses, "eval_episode_reward": reward,
+              "sps": metrics["training/sps"],
+              "sps_after_first": metrics.get("training/sps_after_first"),
+              "prefill_s": metrics["training/walltime"] - epoch_s, "training_steps_s": epoch_s,
+              "eval_s": metrics["eval/epoch_eval_time"],
+              "buffer_rows": p["max_replay_size"],
+              # a row: obs, action, reward, discount, next obs, truncation
+              "buffer_bytes": p["max_replay_size"] * 4 * (
+                  recorder.initial["policy"]["hidden_0.kernel"].shape[0]
+                  + recorder.initial["q"]["MLP_0.hidden_0.kernel"].shape[0] + 3),
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "smallest_param_change": min(moved.values())}
+    print(f"main path SAC {label} {tag}: {recipe_name} recipe cut to {cut} (prefill "
+          f"{prefill} actor steps, {steps} training steps of {p['grad_updates_per_step']} SGD "
+          f"steps, one eval of 128 envs x {p['episode_length']} steps) in {seconds:.1f} s: "
+          f"training/sps {record['sps']:.1f} (after the first step "
+          f"{record['sps_after_first']}), host s prefill {record['prefill_s']:.3f}, training "
+          f"steps {epoch_s:.3f}, eval {record['eval_s']:.3f}; launches {launches} (as "
+          f"expected); losses {losses}, eval/episode_reward {reward:.5g}; every parameter "
+          f"moved (smallest max change {record['smallest_param_change']:.3e}); replay buffer "
+          f"{record['buffer_rows']} rows, {record['buffer_bytes'] / 1e9:.2f} GB; peak memory "
+          f"{record['max_memory_allocated'] / 2**30:.3f} GiB")
+    return record
+
+
+def sac_paths(tag, phase):
+    """The SAC phases: the fused kernels at SAC's shapes, then sac.train on
+    humanoid (its recipe; a training step profiled apart), halfcheetah and
+    the v2 ant (the halfcheetah recipe)."""
+    chains = sac_chains(tag, phase)
+    phase("main path: SAC on humanoid")
+    runs = {"humanoid": sac_main_path(tag, "humanoid", "humanoid", "humanoid")}
+    p = SAC_RECIPES["humanoid"]
+    # the second of two training steps, profiled: a prefill of one SGD
+    # sample's rows and a PROFILE_EPISODE-step eval keep the trace short
+    prof = print_profile(tag, "SAC humanoid, ", "on", profile_training_step(
+        True, run=lambda: run_sac("humanoid", "humanoid", 2, episode_length=PROFILE_EPISODE,
+                                  min_replay_size=p["batch_size"] * p["grad_updates_per_step"]),
+        prefix="sac", parts=("sgd",)))
+    runs["humanoid"]["profile"] = {k: v for k, v in prof.items() if k not in ("top", "host_top")}
+    phase("main path: SAC on halfcheetah")
+    runs["halfcheetah"] = sac_main_path(tag, "halfcheetah", "halfcheetah", "halfcheetah")
+    phase("main path: SAC on v2 ant")
+    runs["v2 ant"] = sac_main_path(tag, "v2 ant", v2_ant, "halfcheetah")
+    return {"chains": chains, "runs": runs}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -2200,10 +2473,15 @@ def main():
                                  **{f"APG {label} {k}": r["launches"][f"fused_mlp_{kind}"]
                                     for label in ("v1 ant", "v2 ant")
                                     for k, r in apg_run[label].items()},
+                                 **{f"SAC {label}": r["launches"][f"fused_mlp_{kind}"]
+                                    for label, r in sac_run["runs"].items()},
                                  "probe": probe_launches.get(f"fused_mlp_{kind}", 0)},
             "launches_per_training_step": per_step_launches[kind],
-            "max_abs_err": max(c[kind]["max_abs_err"] for k, c in checks.items()
-                               if k[2] == "bf16"),
+            "max_abs_err": max([c[kind]["max_abs_err"] for k, c in checks.items()
+                                if k[2] == "bf16"]
+                               + [c[mode][kind]["max_abs_err"]
+                                  for c in sac_run["chains"]["checks"].values()
+                                  for mode in ("relu_bf16", "swish_bf16") if kind in c[mode]]),
             "max_abs_err_f32": max(c[kind]["max_abs_err"] for k, c in checks.items()
                                    if k[2] == "f32"),
             "tolerance": {"bf16_rel_to_max": BF16_REL, "f32_rtol_atol": F32_TOL[kind]},
@@ -2238,6 +2516,24 @@ def main():
                  **checks[c, r, m][kind]}
                 for (c, r, m) in times
             ],
+            "by_shape_sac": [
+                {"chain": c, "dims": SAC_CHAINS[c], "rows": r, "mode": "bf16", "activation": "relu",
+                 "ms": t[kind], "ms_host_issued": t[kind + "_host"],
+                 "plain_ms": t["plain_" + kind], "cublas_chain_ms": t["cublas_" + kind],
+                 "cublas_chain_ms_host_issued": t["cublas_" + kind + "_host"],
+                 "bound_ms": sac_run["chains"]["bounds"][kind, c, r][0],
+                 "bound_by": sac_run["chains"]["bounds"][kind, c, r][1],
+                 "launch": sac_run["chains"]["plans"][kind, c, r],
+                 "checks": {mode: e[kind] for mode, e in sac_run["chains"]["checks"][c, r].items()
+                            if kind in e}}
+                for (c, r), t in sac_run["chains"]["times"].items()
+            ],
+            "relu_rule": f"bf16 forward on every row; backward in f32 mode on the rows whose "
+                         f"plain pre-activations lie further than {RELU_KINK} from 0, and in "
+                         f"bf16 on every row with dx off on no more rows than bf16 and f32 flip "
+                         f"at the kink and each dW and db within the plain bf16 version's own "
+                         f"norm error against f32; bf16 forward and backward on every row with "
+                         f"swish",
             "card": name_limit,
         }
 
@@ -2381,6 +2677,9 @@ def main():
                        "spring ant": tuple(s_scene["ant"][k] for k in ("sys", "qp", "act"))})
     apg_run = apg_paths(tag, phase, apg_states, torch.Generator(device=device).manual_seed(11))
 
+    # -- SAC: the fused kernels' Q route, then sac.train on humanoid, halfcheetah, v2 ant --------
+    sac_run = sac_paths(tag, phase)
+
     # -- the launch-overhead probe ------------------------------------------------------
     phase("probe parity")
     probe_on_paths = {"probe_copy_plus_one": probe.copy_plus_one.launches,
@@ -2505,6 +2804,10 @@ def main():
                                  for kind, r in apg_run[label].items()},
         "main_paths": {label: apg_run[label] for label in ("v1 ant", "v2 ant")},
         "card": name_limit}}))
+    print(json.dumps({"sac": {
+        "runs": sac_run["runs"],
+        "fused_checks": {f"{c}@{r}": v for (c, r), v in sac_run["chains"]["checks"].items()},
+        "card": name_limit}}))
     print(json.dumps({"kernels": [{
         "name": "pbd_step",
         "route": "cuda",
@@ -2565,7 +2868,10 @@ def main():
                                 f".step": r["launches"] for name, r in s_main.items()},
                              "PPO spring ant": s_launches["pbd_step"],
                              **{f"APG v1 ant {kind}": r["launches"]["pbd_step"]
-                                for kind, r in apg_run["v1 ant"].items()}},
+                                for kind, r in apg_run["v1 ant"].items()},
+                             **{f"SAC {label}": r["launches"]["physics"]
+                                for label, r in sac_run["runs"].items()
+                                if not label.startswith("v2")}},
         "by_scene": {
             "ant": {"ms": kernel_ms, "ms_host_issued": pbd_by_envs[N_ENVS]["host"],
                     "ms_by_envs": pbd_by_envs, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2666,6 +2972,7 @@ def main():
                                  "PPO v2 ant": v2_launches["gen_step"],
                                  **{f"APG v2 ant {kind}": r["launches"]["gen_step"]
                                     for kind, r in apg_run["v2 ant"].items()},
+                                 "SAC v2 ant": sac_run["runs"]["v2 ant"]["launches"]["physics"],
                                  **{f"v2 {name} env.step": r["launches"]
                                     for name, r in v2_records.items()}},
             "by_env": {name: {

@@ -1,6 +1,7 @@
 """The CUDA kernels (PBD step, fused MLP, generalized step, the launch-overhead
-probe) against their plain versions, on a CUDA card, and the physics
-steps' autograd Functions (APG's gradients) with the kernels forward.
+probe) against their plain versions, on a CUDA card, the physics steps'
+autograd Functions (APG's gradients) with the kernels forward, and SAC's
+route through the fused kernels (its critics' 257-wide input).
 
 These tests skip without a card.  This file imports no JAX, so that it runs
 where only PyTorch is installed:
@@ -974,6 +975,144 @@ def test_fused_kernels_raise_on_a_chain_too_deep(cuda):
         fused_mlp.chain_fwd(x, ws, bs)
     with pytest.raises(NotImplementedError, match=str(fused_mlp.MAX_LAYERS + 1)):
         fused_mlp.chain_bwd(x, ws, bs, g)
+
+
+# ---------------------------------------------------------------------------
+# SAC: the fused MLP's Q route
+# ---------------------------------------------------------------------------
+
+# SAC's critics take the observation and the action together: humanoid's
+# 240 + 17 = 257 inputs (past MAX_WIDTH), halfcheetah's 18 + 6, and the
+# widest input the kernels hold
+Q_CHAINS = {"humanoid": (257, (256, 256, 1)), "halfcheetah": (24, (256, 256, 1)),
+            "widest": (fused_mlp.MAX_IN_WIDTH, (256, 256, 1))}
+
+
+@pytest.mark.parametrize("name", sorted(Q_CHAINS))
+def test_q_chain_relu_matches_plain_by_the_kink_rule(cuda, name):
+    """relu at the critics' shapes (RELU_KINK's rule): bf16 forward, and
+    f32 mode backward on the rows clear of the kink."""
+    d0, sizes = Q_CHAINS[name]
+    x, ws, bs, g = _chain(cuda, (256,), d0, sizes)
+    g = g / 256
+    y = fused_mlp.chain_fwd(x, ws, bs, "relu", True)
+    _close(y, fused_mlp.chain_fwd_plain(x, ws, bs, "relu", True), True, "fwd")
+    zs = fused_mlp._forward_plain(x, ws, bs, "relu", False, keep=True)[2]
+    clear = torch.stack([z.abs().amin(dim=1) for z in zs]).amin(dim=0) > RELU_KINK
+    assert int(clear.sum()) > 200
+    _check_against_plain(x[clear].contiguous(), ws, bs, g[clear].contiguous(), "relu", False)
+
+
+@pytest.mark.parametrize("rows", [1, 17, 256, 1029])
+@pytest.mark.parametrize("name", sorted(Q_CHAINS))
+def test_q_chain_bf16_matches_plain_whole(cuda, name, rows):
+    """The bf16 kernels, dx's second round of columns included, on every
+    row: swish (no kink) at the critics' shapes."""
+    x, ws, bs, g = _chain(cuda, (rows,), *Q_CHAINS[name])
+    _check_against_plain(x, ws, bs, g / rows, "swish", True)
+
+
+@pytest.mark.parametrize("rows", [128, 256])
+@pytest.mark.parametrize("name", sorted(Q_CHAINS) + ["policy_humanoid"])
+def test_sac_chain_relu_bf16_backward_every_row(cuda, name, rows):
+    """relu's bf16 backward (the mode SAC's path launches) on every row,
+    held by what bf16 rounding moves at the kink: dx differs from the plain
+    bf16 version's by more than BF16_REL of its largest value on no more
+    rows than those where the plain version's bf16 and f32 pre-activations
+    put some unit on other sides of 0; each dW's and db's relative norm
+    error is at most the plain bf16 version's own against f32, or f32
+    mode's rtol 2e-4 where that is smaller (the last db)."""
+    d0, sizes = Q_CHAINS.get(name, (240, (256, 256, 34)))
+    x, ws, bs, g = _chain(cuda, (rows,), d0, sizes)
+    g = g / rows
+    got = fused_mlp.chain_bwd(x, ws, bs, g, "relu", True)
+    plain = fused_mlp.chain_bwd_plain(x, ws, bs, g, "relu", True)
+    plain_f32 = fused_mlp.chain_bwd_plain(x, ws, bs, g, "relu", False)
+    z16, z32 = (fused_mlp._forward_plain(x, ws, bs, "relu", bf16, keep=True)[2]
+                for bf16 in (True, False))
+    torch.cuda.synchronize()
+    flipped = torch.stack([((a > 0) != (b > 0)).any(dim=1) for a, b in zip(z16, z32)])
+    off = (got[0] - plain[0]).abs().amax(dim=1) > BF16_REL * plain[0].abs().max()
+    assert int(off.sum()) <= int(flipped.any(dim=0).sum())
+    norm_err = lambda a, b: float((a - b).norm() / b.norm())
+    for j in (1, 2):
+        for i, (a, b, c) in enumerate(zip(got[j], plain[j], plain_f32[j])):
+            assert norm_err(a, b) <= max(norm_err(b, c), 2e-4), (j, i)
+
+
+def test_narrow_relu_q_chain_bf16_backward_whole(cuda):
+    """relu in bf16, forward and backward on every row, on a 257-wide input
+    with hidden layers narrow enough that no row's pre-activation lies near
+    the kink."""
+    x, ws, bs, g = _chain(cuda, (256,), 257, (32, 32, 1))
+    _check_against_plain(x, ws, bs, g / 256, "relu", True)
+
+
+def test_fused_kernels_raise_on_input_above_max_in_width(cuda):
+    width = fused_mlp.MAX_IN_WIDTH + 1
+    x, ws, bs, g = _chain(cuda, (8,), width, (256, 1))
+    for bf16 in (True, False):
+        with pytest.raises(NotImplementedError, match=str(width)):
+            fused_mlp.chain_fwd(x, ws, bs, "relu", bf16)
+        with pytest.raises(NotImplementedError, match=str(width)):
+            fused_mlp.chain_bwd(x, ws, bs, g, "relu", bf16)
+
+
+def test_q_route_captured_in_a_cuda_graph(cuda):
+    """The humanoid critics' forward and backward (dx into obs and action,
+    every dW and db) captured in one CUDA graph: the replay equals the
+    eager result bit for bit; two launches of each kernel a step."""
+    from brax_torch.training import networks
+
+    q = networks.make_q_network(240, 17, device=cuda)
+    params = q.init(torch.Generator(device=cuda).manual_seed(0))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    obs = torch.randn((256, 240), generator=gen, device=cuda).requires_grad_()
+    act = (torch.rand((256, 17), generator=gen, device=cuda) * 2 - 1).requires_grad_()
+    g = torch.randn((256, 2), generator=gen, device=cuda) / 256
+
+    def step():
+        y = q(None, params, obs, act)
+        return (y, *torch.autograd.grad(y, [obs, act, *params.values()], g))
+
+    with fused_mlp.enabled_as(True):
+        fwd0, bwd0 = fused_mlp.chain_fwd.launches, fused_mlp.chain_bwd.launches
+        step()
+        assert (fused_mlp.chain_fwd.launches - fwd0, fused_mlp.chain_bwd.launches - bwd0) == (2, 2)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = step()
+        eager = step()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(captured, eager):
+        assert torch.equal(a, b)
+
+
+def test_sac_training_step_launches_exactly(cuda):
+    """sac.train on humanoid: one prefill actor step, one training step of
+    2 SGD steps, an 8-step eval.  Fused forward: 1 + (1 + 2 x 9) + 8 (an
+    SGD step runs the policy in each loss, the critics in the critic and
+    actor losses, the target critics once); backward 2 x 5 (the critics
+    twice, the policy once); PBD 1 + 1 + 8."""
+    from brax_torch.training.agents.sac import train as sac
+
+    kernels.pbd_step_launch.launches = 0
+    fused_mlp.chain_fwd.launches = fused_mlp.chain_bwd.launches = 0
+    _, _, metrics = sac.train("humanoid", num_timesteps=32, episode_length=8, num_envs=16,
+                              num_eval_envs=16, batch_size=32, min_replay_size=16,
+                              grad_updates_per_step=2, normalize_observations=True,
+                              device=cuda)
+    launches = (fused_mlp.chain_fwd.launches, fused_mlp.chain_bwd.launches,
+                kernels.pbd_step_launch.launches)
+    assert launches == (28, 10, 10)
+    for k in ("critic_loss", "actor_loss", "alpha_loss", "alpha"):
+        assert torch.isfinite(torch.tensor(metrics[f"training/{k}"])), k
 
 
 # ---------------------------------------------------------------------------
