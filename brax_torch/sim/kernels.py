@@ -20,7 +20,11 @@ topology, the per-body lists the kernel gathers and the constants that
 (`brax_torch/cuda_build.py`, keyed by the text's hash) and ctypes loads.
 `plan(sys)` spreads an env over `lanes` lanes of a warp (a lane per body,
 joint, actuator and contact) and puts `envs_per_block` envs, one warp, in a
-block; the source holds the header to it with static_asserts.  A System's
+block; the source holds the header to it with static_asserts.  A scene
+that needs more than 32 lanes (the multi-agent composer scenes: 64 for the
+2-agent chase's 35 contact points, 256 for the 4-agent chase's 170) defines
+PBD_WIDE: one env takes a block of 64-256 threads, and its lanes exchange
+values through shared memory where a warp's lanes shuffle.  A System's
 joints are all revolute or all spherical (`builder.build` pads a PBD scene
 with mixed dofs to 3); a spherical scene's header defines PBD_SPHERICAL,
 which compiles the source's spherical joint rows and 3-dof actuators in
@@ -71,9 +75,12 @@ if TYPE_CHECKING:
 
 SOURCE = cuda_build.CSRC / "pbd_step.cu"
 BUILD_DIR = cuda_build.BUILD_DIR
-# guards on the generated size: the scenes the kernel is built and tested for
-# (a contact needs a lane of its env's 32 at most)
-MAX_BODIES, MAX_CONTACTS, MAX_ACT = 16, 32, 64
+# guards on the generated size: an env takes a lane per body, joint,
+# actuator, contact and force, within one warp (32 lanes) or, on the wide
+# route, one block of at most MAX_LANES threads (255 registers a thread fit
+# 256 threads on an SM)
+MAX_LANES = 256
+MAX_BODIES, MAX_CONTACTS, MAX_ACT = MAX_LANES, MAX_LANES, 64
 WARP = 32
 # pack_tables' record sizes, in floats: globals, body, joint, actuator, a
 # capsule-plane contact, a capsule-capsule contact and a force
@@ -139,6 +146,11 @@ def unsupported_features(sys: System, n_act: int = 0) -> List[str]:
     ported = (colliders_mod.CapsulePlane, colliders_mod.BoxPlane, colliders_mod.CapsuleCapsule)
     if sum(_n_contacts(c) for c in sys.contact_groups if isinstance(c, ported)) > MAX_CONTACTS:
         missing.append(f"more than {MAX_CONTACTS} contact points")
+    for what, count in (("joints", sum(g.n for g in sys.joint_groups)),
+                        ("actuators", sum(a.n for a in sys.actuator_groups)),
+                        ("forces", sum(f.n for f in sys.force_groups))):
+        if count > MAX_LANES:
+            missing.append(f"{count} {what} (the kernel holds {MAX_LANES})")
     if n_act > MAX_ACT:
         missing.append(f"{n_act} action columns (the kernel holds {MAX_ACT})")
     return missing
@@ -291,7 +303,10 @@ class Plan:
     An env spreads over `lanes` lanes (a power of two, at least each of
     nb, nj, na, nc and nf): lane b owns body b, lane j computes joint j,
     lane k actuator k, lane c contact c; force f's record sits at lane f.
-    A block is one warp of `envs_per_block` envs.  Each body lane gathers, in this order, from the joints where it
+    A block is one warp of `envs_per_block` envs; a scene that needs more
+    than a warp's 32 lanes (`wide`: 64-256) takes a block of `lanes`
+    threads for one env, whose lanes exchange through shared memory.  Each
+    body lane gathers, in this order, from the joints where it
     is the child and then the parent (joint order), from the actuators whose
     joint touches it (actuator order, sign +1 parent, -1 child) and, per
     contact group, from the contacts where it is body a and then from the
@@ -383,6 +398,11 @@ class Plan:
         return self.lanes * self.envs_per_block
 
     @property
+    def wide(self) -> bool:
+        """An env over the warps of a block (PBD_WIDE)."""
+        return self.lanes > WARP
+
+    @property
     def widths(self) -> Tuple[int, int, int, int]:
         """(KC, KP, KA, KG): the longest list of each kind, at least 1."""
         return (_longest(self.body_child_joints), _longest(self.body_parent_joints),
@@ -431,10 +451,10 @@ def plan(sys: System) -> Plan:
         itab[at[i]:at[i + 1]].reshape(-1, size)
         for i, size in enumerate((2, a_int, 3, F_INT, SJ_INT)))
     lanes = _next_pow2(max(nb, nj, na, nc, nf, 1))
-    if lanes > WARP:
+    if lanes > MAX_LANES:
         raise NotImplementedError(
-            f"the CUDA PBD step spreads an env over at most {WARP} lanes; this scene needs "
-            f"{lanes} (nb {nb}, nj {nj}, na {na}, nc {nc}, nf {nf})")
+            f"the CUDA PBD step spreads an env over at most {MAX_LANES} lanes; this scene "
+            f"needs {lanes} (nb {nb}, nj {nj}, na {na}, nc {nc}, nf {nf})")
     parent, child = joints[:, 0].tolist(), joints[:, 1].tolist()
     groups = max(len(sys.contact_groups), 1)
     per_contact = lambda one_way: tuple(_is_capcap(c) and bool(c.com.one_way) == one_way
@@ -449,7 +469,7 @@ def plan(sys: System) -> Plan:
     p = Plan(
         nb=nb, nj=nj, na=na, nc=nc, passes=sys.substeps if spring else sys.substeps // 2,
         lanes=lanes,
-        envs_per_block=WARP // lanes,
+        envs_per_block=max(WARP // lanes, 1),
         spherical=any(g.kind == "spherical" for g in sys.joint_groups),
         joint_parent=tuple(parent), joint_child=tuple(child),
         act_joint=tuple(acts[:, 0].tolist()),
@@ -568,6 +588,8 @@ def scene_header(sys: System) -> str:
         parts.append(f"#define PBD_FORCES 1\n#define PBD_NF {p.nf}\n#define PBD_KF {p.width_f}\n")
     if p.angle:
         parts.append("#define PBD_ANGLE 1\n")
+    if p.wide:
+        parts.append("#define PBD_WIDE 1\n")
     parts += [
         _lane_floats("BODY_F", bodies, L),
         _lane_floats("JOINT_F", joints, L),

@@ -4,6 +4,8 @@ halfcheetah and pusher whose two-way capsule-capsule pairs overlap, the
 physics actions of the thruster and angle-actuator scenes and of hopper
 and walker2d, grasp's states (its claw closed on the ball), fetch's (its
 feet on the ground), the legacy-spring envs' states (`spring_states`),
+the composer's wide scenes' states (`composer_states`: the 2- and 4-agent
+chase, from a reset, after 10 twin steps and with the ants overlapping),
 and Systems made for what no default scene has (a one-way pair whose body
 b moves, padded spherical angle dofs, a twister).
 
@@ -126,6 +128,21 @@ RULES = {
     **{f"{name}_spring": {"reset": ("max_errors", "max_errors"),
                           "after 10 twin steps": ("max_errors", "max_errors")}
        for name in ("inverted_pendulum", "inverted_double_pendulum", "reacher", "reacherangle")},
+    # the composer's wide scenes (COMPOSER_WIDE below, PBD_WIDE): the chaos
+    # rule where the twin itself left TOLERANCE in more than MAX_OUTLIERS
+    # of 4096 envs under CHAOS_NOISE (composer_states' seed 0; one pass /
+    # whole step, one draw on the CPU): the 2-agent chase's reset 8 / 7
+    # (every foot on the floor to the last bit, as at legacy spring's
+    # resets), after 10 steps 1 / 4 (at the limit), the ants overlapping
+    # 2318 / 2377; the 4-agent chase's 10 / 17, 0 / 1 and 3223 / 3240.  On
+    # an H100 (the card's draws) the 4-agent chase's whole step after 10
+    # steps read 11, and its kernel 5 outliers: the chaos rule there too
+    "chase": {"reset": ("chaos_rule", "chaos_rule"),
+              "after 10 twin steps": ("max_errors", "chaos_rule"),
+              "ants overlapping": ("chaos_rule", "chaos_rule")},
+    "chase4": {"reset": ("chaos_rule", "chaos_rule"),
+               "after 10 twin steps": ("max_errors", "chaos_rule"),
+               "ants overlapping": ("chaos_rule", "chaos_rule")},
 }
 
 
@@ -267,9 +284,10 @@ def chaos_rule(sys_, qp, act, got, want, tol=TOLERANCE, seed=7, spread=None):
     or `spread` where given).
 
     An env strays if in some field |got - want| exceeds both that field's
-    `tol` and CHAOS_RATIO x its spread.  Returns ({field: report}, straying
-    env indices, the most that may stray: CHAOS_SHARE of the envs, rounded
-    down).
+    `tol` and CHAOS_RATIO x its spread, or is not finite (a NaN or an
+    infinity in either output: no spread covers it).  Returns ({field:
+    report}, straying env indices, the most that may stray: CHAOS_SHARE of
+    the envs, rounded down).
 
     halfcheetah's step is chaotic: its feet (inverse inertia ~150) spin at
     up to ~330 rad/s at reset and contact tests (static friction, a closing
@@ -285,9 +303,9 @@ def chaos_rule(sys_, qp, act, got, want, tol=TOLERANCE, seed=7, spread=None):
     report, strays = {}, torch.zeros(n, dtype=torch.bool, device=qp.pos.device)
     for f in tol:
         err = (got[f] - want[f]).abs().flatten(1).amax(dim=1)
-        beyond = (err > tol[f]) & (err > CHAOS_RATIO * spread[f])
+        beyond = ((err > tol[f]) & (err > CHAOS_RATIO * spread[f])) | ~torch.isfinite(err)
         strays |= beyond
-        report[f] = {"outside": int((err > tol[f]).sum()),
+        report[f] = {"outside": int((~(err <= tol[f])).sum()),
                      "spread_outside": int((spread[f] > tol[f]).sum()),
                      "beyond_spread": int(beyond.sum()), "max": float(err.max())}
     return report, strays.nonzero().flatten(), int(CHAOS_SHARE * n)
@@ -600,3 +618,71 @@ def spring_states(name, env, n, seed, device, sys_=None):
     for _ in range(10):
         settled, _ = kernels.pbd_step_plain(sys_ or env.sys, settled, act())
     return {SPRING_STATES[0]: (reset, act()), SPRING_STATES[1]: (settled, act())}
+
+
+# every composer scene the port builds, by the composer registry's task
+# name: (task, desc kwargs); "chase4" is the 4-agent chase of
+# brax_torch/tools/bench_composer.py.  octopus_run waits (ROADMAP.md, queue
+# A item 11)
+COMPOSER_SCENES = {"ant_run": ("ant_run", {}), "pro_ant_run": ("pro_ant_run", {}),
+                   "ant_push": ("ant_push", {}), "ant_on_ball": ("ant_on_ball", {}),
+                   "halfcheetah_run": ("halfcheetah_run", {}),
+                   "humanoid_run": ("humanoid_run", {}), "ant_chase": ("ant_chase", {}),
+                   "chase": ("chase", {}), "follow": ("follow", {}), "sumo": ("sumo", {}),
+                   "chase4": ("chase", {"num_agents": 4})}
+# the wide scenes (PBD_WIDE) held against the twin: the 2-agent chase and
+# the 4-agent chase, each from a reset (the ants on a circle of radius 2,
+# on the ground), 10 twin steps after it on uniform actions, and with the
+# ants drawn together (ants_overlapping), on one more action
+COMPOSER_WIDE = ("chase", "chase4")
+COMPOSER_STATES = ("reset", "after 10 twin steps", "ants overlapping")
+# each agent's root drawn toward the agents' centroid to this share of its
+# distance (uniform per env and agent): 0.8-1.6 between the two chase ants,
+# 0.57-1.13 between neighbours of the four, so that legs of different ants
+# overlap
+OVERLAP_SHARE = (0.2, 0.4)
+
+
+def composer_scene(scene, n, device, **kwargs):
+    """The composer scene's env at n envs (`composer.envs.create_env` with
+    `kwargs`: its wrappers)."""
+    from brax_torch.composer import envs as composer_envs
+
+    task, desc = COMPOSER_SCENES[scene]
+    return composer_envs.create_env(task, batch_size=n, device=device, **desc, **kwargs)
+
+
+def composer_env(scene, n, device):
+    """The bare env of a composer scene, n envs."""
+    return composer_scene(scene, n, device, episode_length=None, auto_reset=False).unwrapped
+
+
+def ants_overlapping(env, qp, gen):
+    """qp with each agent (every body of it) moved in x and y so that its
+    root lies at the agents' centroid plus a share OVERLAP_SHARE of its
+    offset from it, drawn per env and agent."""
+    agents = [env.component_meta[a] for a in env.agent_names]
+    n, device = qp.pos.shape[0], qp.pos.device
+    roots = torch.stack([qp.pos[:, m["root_idx"], :2] for m in agents], dim=1)
+    centre = roots.mean(dim=1, keepdim=True)
+    lo, hi = OVERLAP_SHARE
+    share = lo + (hi - lo) * torch.rand((n, len(agents), 1), generator=gen, device=device)
+    shift = (centre + share * (roots - centre)) - roots
+    pos = qp.pos.clone()
+    for k, m in enumerate(agents):
+        pos[:, m["body_idx"], :2] += shift[:, k, None, :]
+    return type(qp)(pos=pos, rot=qp.rot, vel=qp.vel, ang=qp.ang)
+
+
+def composer_states(name, env, n, seed, device):
+    """{state: (qp, act)} of a COMPOSER_WIDE scene (`env` unwrapped, n envs)
+    at COMPOSER_STATES, each with one more action uniform in [-1, 1]."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    act = lambda: torch.rand((n, env.action_size), generator=gen, device=device) * 2 - 1
+    reset = env.reset(gen).qp
+    settled = reset
+    for _ in range(10):
+        settled, _ = kernels.pbd_step_plain(env.sys, settled, act())
+    return {COMPOSER_STATES[0]: (reset, act()), COMPOSER_STATES[1]: (settled, act()),
+            COMPOSER_STATES[2]: (ants_overlapping(env, reset, gen), act())}
+

@@ -12,7 +12,10 @@ same C interface (`brax_pbd_step`, `brax_pbd_step_sizes`,
 Systems of the registry: ant, humanoid (humanoid_legacy builds the same
 System), humanoidstandup, halfcheetah, pusher, inverted_pendulum,
 inverted_double_pendulum, swimmer, reacherangle, reacher, grasp, acrobot,
-ur5e, fetch, hopper, walker2d) both builds' SASS instructions are
+ur5e, fetch, hopper, walker2d; the eight legacy-spring Systems, named
+"<env>_spring"; and the composer's one-warp scenes pro_ant_run, ant_push,
+ant_on_ball, halfcheetah_run and humanoid_run, ant_run's System being v1
+ant's) both builds' SASS instructions are
 compared (cuobjdump; the same code when equal), and both kernels step the
 same 4096 envs, 10 twin steps after a reset (in contact), and the first
 2048 and 128 of them: the largest difference of their outputs (0: the
@@ -36,9 +39,13 @@ from brax_torch import cuda_build, envs
 from brax_torch.sim import kernels
 from brax_torch.tools import probe_overhead as probe
 
+SPRING_SCENES = ("ant", "halfcheetah", "humanoid_legacy", "humanoidstandup", "inverted_pendulum",
+                 "inverted_double_pendulum", "reacher", "reacherangle")
+COMPOSER_SCENES = ("pro_ant_run", "ant_push", "ant_on_ball", "halfcheetah_run", "humanoid_run")
 SCENES = ("ant", "humanoid", "humanoidstandup", "halfcheetah", "pusher", "inverted_pendulum",
           "inverted_double_pendulum", "swimmer", "reacherangle", "reacher", "grasp", "acrobot",
-          "ur5e", "fetch", "hopper", "walker2d")
+          "ur5e", "fetch", "hopper", "walker2d",
+          *(f"{name}_spring" for name in SPRING_SCENES), *COMPOSER_SCENES)
 BATCHES = (4096, 2048, 128)
 CALLS = 20
 OUTPUTS = ("pos", "rot", "vel", "ang", "contact_vel", "contact_ang")
@@ -71,12 +78,30 @@ def launch(lib: ctypes.CDLL, ins, outs) -> None:
         raise RuntimeError(f"pbd_step launch failed: CUDA error {err}")
 
 
+def scene_env(name: str, n: int):
+    """The env of scene `name` at n envs: a registry env, a spring one
+    ("<env>_spring", made with legacy_spring=True) or a composer scene."""
+    if name.endswith("_spring"):
+        return envs.create(name[:-len("_spring")], episode_length=1000, batch_size=n,
+                           legacy_spring=True)
+    if name in COMPOSER_SCENES:
+        from brax_torch.composer import envs as composer_envs
+
+        return composer_envs.create_env(name, episode_length=1000, batch_size=n)
+    return envs.create(name, episode_length=1000, batch_size=n)
+
+
 def scene_state(name: str, n: int):
-    """n envs of `name`, 10 twin steps after a reset, and an action."""
-    env = envs.create(name, episode_length=1000, batch_size=n)
+    """n envs of `name`, 10 twin steps after a reset (the spring double
+    pendulum, which cannot reset, from default_qp), and an action."""
+    env = scene_env(name, n)
     gen = torch.Generator(device="cuda").manual_seed(0)
     act = lambda: torch.rand((n, env.action_size), generator=gen, device="cuda") * 2 - 1
-    qp = env.reset(gen).qp
+    if name == "inverted_double_pendulum_spring":
+        zero = torch.zeros((n, 0), device="cuda")
+        qp = env.unwrapped.default_qp(joint_angle=zero, joint_velocity=zero)
+    else:
+        qp = env.reset(gen).qp
     for _ in range(10):
         qp, _ = kernels.pbd_step_plain(env.sys, qp, act())
     return env.sys, (qp.pos, qp.rot, qp.vel, qp.ang, act())

@@ -11,6 +11,9 @@ a pipeline State; where autograd records the step it runs through
 `GenStep`, the counterpart of the JAX package's `_with_vjp`: the kernel
 forward, and the VJP of the pipeline's steps (`pipeline.step`) as the
 backward, which is what the JAX backward differentiates.
+`build_tiled_chain_fn` is the entry for rollout chains: its step takes and
+returns the carry (q, qd, M^-1) in the kernel's own (fields, N) layout, one
+launch a step with no transposes.
 
 The semantics are the kernel's, not the pipeline's: each frame recomputes
 kinematics, contacts, CoM terms and the mass matrix from (q, qd), refreshes
@@ -1010,6 +1013,47 @@ def gen_step(sys: System, q: Tensor, qd: Tensor, minv: Tensor, act: Tensor,
     outs = gen_step_soa(sys, soa(q), soa(qd), soa(minv), soa(act), n_frames)
     shapes = out_shapes(sys)
     return {k: v.t().reshape((n,) + shapes[k]) for k, v in outs.items()}
+
+
+def build_tiled_chain_fn(sys: System, n_frames: int, num_envs: int, block: int = 0):
+    """Env-step physics for rollout chains, on the kernel's own layout.
+
+    The counterpart of the JAX package's `build_tiled_chain_fn`
+    (`brax_tpu/v2/generalized/kernels.py:1181`).  Returns (step_t,
+    out_schema): `step_t((q_t, qd_t, minv_t), act_t) -> ((q_t, qd_t,
+    minv_t), outs)` carries (q, qd, M^-1) in the (fields, N) layout of
+    `gen_step_soa` (q_t (nq, N), qd_t (nd, N), minv_t (nd*nd, N), act_t
+    (na, N), N = num_envs), so that a rollout of chained steps pays the
+    batch-first <-> (fields, N) relayout once, not once per step.  `outs`
+    holds every output of `gen_step_plain` in that layout, and out_schema
+    lists (name, per-env shape) in its order.  On CUDA tensors each call
+    is one `gen_step_soa` launch (`block` envs per block, 0 for the
+    default) and no transpose; on CPU tensors it runs `gen_step_plain` on
+    the same layout.  A System the kernel does not cover raises
+    NotImplementedError here, never falling back.
+    """
+    missing = unsupported_features(sys)
+    if missing:
+        raise NotImplementedError("the generalized kernel does not cover: " + ", ".join(missing)
+                                  + " (see ROADMAP.md, queue B item 2)")
+    shapes = out_shapes(sys)
+    out_schema = list(shapes.items())
+
+    def step_t(carry, act_t):
+        q_t, qd_t, minv_t = carry
+        if q_t.shape[-1] != num_envs:
+            raise ValueError(f"the chain was built for {num_envs} envs, got {q_t.shape[-1]}")
+        if all(t.device.type == "cpu" for t in (q_t, qd_t, minv_t, act_t)):
+            aos = lambda x: x.t().reshape(num_envs, -1)
+            out = gen_step_plain(sys, aos(q_t), aos(qd_t),
+                                 minv_t.t().reshape(num_envs, *shapes["minv"]), aos(act_t),
+                                 n_frames)
+            outs = {k: v.reshape(num_envs, -1).t().contiguous() for k, v in out.items()}
+        else:
+            outs = gen_step_soa(sys, q_t, qd_t, minv_t, act_t, n_frames, block)
+        return (outs["q"], outs["qd"], outs["minv"]), outs
+
+    return step_t, out_schema
 
 
 def gen_step_state(sys: System, state: State, act: Tensor, n_frames: int) -> State:

@@ -128,6 +128,19 @@
    one evaluation of 128 envs, with exact launch counts (per training step
    80 PBD, 464 fused forward, 256 backward: ant's shapes, whose fused
    kernels step 6 holds);
+9g. the composer (brax_torch/composer) and the PBD kernel past one warp
+   (PBD_WIDE: an env a block of 64-256 threads, its lanes exchanging through
+   shared memory): the 2-agent chase (64 lanes) and the 4-agent chase of
+   brax_torch/tools/bench_composer.py (256 lanes) held against the twin at
+   4096 envs from a reset, after 10 twin steps and with the ants
+   overlapping (pbd_parity.composer_states), over one pass and the whole
+   step, each by the rule pbd_parity.RULES names; env.step of every
+   composer scene (ant_run, pro_ant_run, ant_push, ant_on_ball,
+   halfcheetah_run, humanoid_run, ant_chase, chase, follow, sumo and the
+   4-agent chase) at 4096 envs: 50 profiled steps with exactly one PBD
+   launch each, finite observations, a reward an agent, the device busy
+   share; the kernel timed per composer System as in step 5 beside its
+   bound, with its launch (registers, spills, shared memory, blocks per SM);
 10. holds the generalized-step kernel (brax_torch/csrc/gen_step.cu, built
    for the v2 ant) against its plain version at 4096 envs from a state 10
    plain env steps after reset, at one frame and at ant's five, with the
@@ -139,6 +152,14 @@
    env.step calls, counts the plain version's operations for the bound,
    and times the kernel (a warp per env) at every envs-per-block its
    shared memory allows, at 4096 and 16384 envs (one pass);
+12b. the chain entry (gen_kernels.build_tiled_chain_fn: the carry q, qd,
+   M^-1 kept in the kernel's (fields, N) layout, one launch a step, no
+   transposes) on the v2 ant at 4096 envs: 3 chained steps bit for bit
+   against chained gen_step and gen_step_plain calls, 50 chained steps with
+   exactly one launch each, its ms per launch (graph-replayed and
+   host-issued) beside gen_bound, and env-steps/s of the chain
+   (host-issued and replayed from a CUDA graph) and of env.step in turns
+   (brax_torch.tools.bench_v2_generalized.measure);
 13. holds the generalized-step kernel of each other v2 env (inverted
    pendulum, inverted double pendulum, reacher, halfcheetah, hopper,
    walker2d) against its plain version at 4096 envs and the env's n_frames,
@@ -162,8 +183,8 @@
    nothing under no_grad; on ant also over APG_GRAD_STEPS steps by
    grad_parity.hold_rollout_grads' per-env rules, and timed; the same on
    the v2 ant at 2048 envs against autograd through five pipeline steps;
-   then apg.train on v1 ant (32 steps) and v2 ant (16 steps) at 2048 envs,
-   an epoch each plain and truncated every 8 steps, with the exact launch
+   then apg.train on v1 ant (16 steps) and v2 ant (8 steps) at 2048 envs,
+   an epoch each plain and truncated every 4 steps, with the exact launch
    counts and backward runs, finite nonzero gradients, moved parameters
    and a finite eval reward, and an {"apg": ...} line (seconds of rollout,
    backward and update, launches, the checks, peak memory);
@@ -191,12 +212,14 @@
    drives the probe (brax_torch.tools.probe_overhead.measure), which times
    every launch both issued by the host and replayed from a CUDA graph;
 17. prints one JSON line listing every kernel (pbd_step's and gen_step's
-   with the backward route their Functions take; the fused kernels' with
-   SAC's shapes and launches) and, last,
+   with the backward route their Functions take; pbd_step_wide, the wide
+   route on the composer's multi-agent scenes; gen_step_chain, the chain
+   entry; the fused kernels' with SAC's shapes and launches) and, last,
    {"ok": true, "device": {...}}.
 
 The CUDA sources are built at the start, one nvcc each, in parallel (the
-generalized step once per v2 scene); for each scene the generalized step's
+generalized step once per v2 scene; the PBD step once per System, the
+composer's among them); for each scene the generalized step's
 launch is printed: ptxas's registers, stack and spills, shared memory per
 env and per block, envs per block, resident blocks per SM and waves at
 4096 envs and at PPO's batch.  Each gen_step parity check also counts the
@@ -218,11 +241,14 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from brax_torch import cuda_build, envs
 from brax_torch.braxlines.defaults import DEFAULT_PPO_PARAMS
 from brax_torch.sim import kernels
+from brax_torch.tools import bench_v2_generalized as bench_v2
 from brax_torch.tools import fused_turns, grad_parity
 from brax_torch.tools import probe_overhead as probe
-from brax_torch.tools.pbd_parity import (MAX_OUTLIERS, PERTURBED_COPIES, ROUNDING_NOISE,
-                                         RULES, SPRING_SCENES, STATES, TOLERANCE, capcap_share,
-                                         capcap_state, contact_share, corners_down, fetch_states,
+from brax_torch.tools.pbd_parity import (COMPOSER_SCENES, COMPOSER_WIDE, MAX_OUTLIERS,
+                                         PERTURBED_COPIES, ROUNDING_NOISE, RULES, SPRING_SCENES,
+                                         STATES, TOLERANCE, capcap_share, capcap_state,
+                                         composer_env, composer_scene, composer_states,
+                                         contact_share, corners_down, fetch_states,
                                          fingertips_on_ball, force_scene_states, grasp_states,
                                          hold_capcap, max_errors, one_pass, spring_env,
                                          spring_states, twister_swimmer)
@@ -368,14 +394,16 @@ SPRING_ANT = envs.create_fn("ant", legacy_spring=True, episode_length=None, auto
 # main paths' batch and eval batch, each epoch's steps (cut from the
 # recipes' 1000 for time: 64 and 32 took the APG phases 147-205 s, over the
 # 3 minutes they may take, 48 and 24 took 167 s; cut to 32 and 16 to make
-# room for the SAC phases in the time limit; a step's backward is 0.5-0.7 s
-# on v1, 0.8-1.2 s on v2), the truncation of the second epoch (8: inside
-# both epochs, so steps run on from a cut state), the learner CLI's learning
+# room for the SAC phases in the time limit, and to 16 and 8 for the
+# composer and chain phases (the whole script took 890-1074 s with 32 and
+# 16); a step's backward is 0.5-0.7 s on v1, 0.8-1.2 s on v2), the
+# truncation of the second epoch (4: inside both epochs, so steps run on
+# from a cut state), the learner CLI's learning
 # rate and clip (brax_tpu/training/learner.py:47-48), and the gradient
 # checks' steps over which the kernel's trajectory and the twin's part
 APG_ENVS, APG_EVAL_ENVS = 2048, 128
-APG_EPISODE = {"v1 ant": 32, "v2 ant": 16}
-APG_TRUNCATION = 8
+APG_EPISODE = {"v1 ant": 16, "v2 ant": 8}
+APG_TRUNCATION = 4
 APG_RECIPE = dict(learning_rate=5e-4, max_gradient_norm=1e9, normalize_observations=True)
 APG_GRAD_STEPS = 4
 # SAC: tools/run_curves.py's SAC recipes (SAC_CONFIGS and SAC_COMMON, copied:
@@ -411,6 +439,18 @@ SAC_SHAPES = [("q_humanoid", 256), ("q_halfcheetah", 256), ("sac_policy_humanoid
 RELU_KINK = 1e-5
 # the PBD kernel's batch sizes: PPO's eval, PPO's training batch, env.step's
 PBD_TIMING_ENVS = (PPO_EVAL_ENVS, 2048, N_ENVS)
+# the composer's Systems timed (ant_run's is v1 ant's; ant_chase's and follow's the
+# chase's, table for table)
+COMPOSER_TIMED = ("pro_ant_run", "ant_push", "ant_on_ball", "halfcheetah_run", "humanoid_run",
+                  "chase", "sumo", "chase4")
+COMPOSER_STEPS = 50
+COMPOSER_WARM = 2
+# env.step calls timed by the host clock after the profiled ones
+COMPOSER_TIMED_STEPS = 10
+CHAIN_STEPS = 50
+# twin steps after a reset of the state the composer Systems are timed on
+# (every scene is on the ground, in contact, from its reset)
+COMPOSER_SETTLE = 3
 PROFILE_EPISODE = 10
 DEVICE = torch.device("cuda")
 
@@ -679,12 +719,15 @@ def gen_bound(sys_, ins, n_frames):
 
 
 def ptxas_figures(report):
-    """Registers, stack frame and spill bytes from a ptxas report."""
+    """Registers, stack frame, spill bytes and static shared memory from a
+    ptxas report."""
     regs = re.search(r"Used (\d+) registers", report)
     frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
                       r"loads", report)
+    smem = re.search(r"(\d+) bytes smem", report)
     return {"registers": int(regs.group(1)), "stack_bytes": int(frame.group(1)),
-            "spill_store_bytes": int(frame.group(2)), "spill_load_bytes": int(frame.group(3))}
+            "spill_store_bytes": int(frame.group(2)), "spill_load_bytes": int(frame.group(3)),
+            "smem_bytes": int(smem.group(1)) if smem else 0}
 
 
 def gen_launch_report(name, sys_, batches):
@@ -2236,6 +2279,263 @@ def sac_paths(tag, phase):
     return {"chains": chains, "runs": runs}
 
 
+
+def composer_main_path(tag, scene):
+    """env.step of a composer scene at N_ENVS: COMPOSER_WARM steps, then
+    COMPOSER_STEPS profiled steps with exactly one PBD launch each (counts
+    set to 0 just before, read just after), then COMPOSER_TIMED_STEPS steps
+    timed by the host clock; finite observations and a (N, agents) or (N,) reward; the device
+    busy share (the profiled device time per step over the unprofiled host
+    time per step).  Returns the record."""
+    env = composer_scene(scene, N_ENVS, DEVICE, episode_length=1000, auto_reset=True)
+    inner = env.unwrapped
+    state = env.reset(torch.Generator(device=DEVICE).manual_seed(1))
+    act_gen = torch.Generator(device=DEVICE).manual_seed(2)
+    act = lambda: torch.rand((N_ENVS, env.action_size), generator=act_gen, device=DEVICE) * 2 - 1
+    for _ in range(COMPOSER_WARM):
+        state = env.step(state, act())
+    kernels.pbd_step_launch.launches = 0
+    from torch.profiler import ProfilerActivity, profile
+
+    # the device's kernels only: recording every host op of 50 steps costs
+    # the profiler minutes across the scenes
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(COMPOSER_STEPS):
+            state = env.step(state, act())
+        torch.cuda.synchronize()
+    launches = kernels.pbd_step_launch.launches
+    if launches != COMPOSER_STEPS:
+        raise AssertionError(f"{COMPOSER_STEPS} {scene} env steps made {launches} launches")
+    device_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0)
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(device_us(e) for e in events) / COMPOSER_STEPS
+    kernels_per_step = sum(e.count for e in events) / COMPOSER_STEPS
+    pbd_us = sum(device_us(e) for e in events if "pbd_step" in e.key) / COMPOSER_STEPS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(COMPOSER_TIMED_STEPS):
+        state = env.step(state, act())
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / COMPOSER_TIMED_STEPS * 1e3
+    agents = len(inner.agent_names)
+    want_reward = (N_ENVS, agents) if agents else (N_ENVS,)
+    if tuple(state.reward.shape) != want_reward:
+        raise AssertionError(f"{scene} reward shape {tuple(state.reward.shape)}")
+    if not bool(torch.isfinite(state.obs).all()) or state.obs.shape != (
+            N_ENVS, env.observation_size):
+        raise AssertionError(f"{scene} obs {tuple(state.obs.shape)} not finite or not "
+                             f"{env.observation_size} wide")
+    rec = {"launches": launches, "env_step_ms": step_ms, "env_steps_per_s": N_ENVS / step_ms * 1e3,
+           "device_us_per_step": dev_us, "pbd_step_us_per_step": pbd_us,
+           "kernels_per_step": kernels_per_step,
+           "busy_share": dev_us / (step_ms * 1e3) if dev_us else None,
+           "obs_width": env.observation_size, "action_size": env.action_size,
+           "agents": agents, "done_fraction": float(state.done.mean()),
+           "wide": kernels.plan(inner.sys).wide}
+    busy = f"{rec['busy_share']:.3f}" if dev_us else "not measured (no device time recorded)"
+    print(f"main path composer {scene}: {COMPOSER_STEPS} profiled env.step calls, {launches} "
+          f"pbd_step launches, obs {tuple(state.obs.shape)} finite, reward "
+          f"{tuple(state.reward.shape)}; env.step {step_ms:.4f} ms/step, "
+          f"{rec['env_steps_per_s']:.1f} env-steps/s (host clock, {COMPOSER_TIMED_STEPS} "
+          f"steps); device "
+          f"{dev_us:.1f} us/step ({pbd_us:.1f} of it pbd_step), {kernels_per_step:.0f} kernels "
+          f"a step, busy {busy} {tag}")
+    return rec
+
+
+def composer_paths(tag, phase):
+    """The composer phases: the wide route (PBD_WIDE) against the twin on the
+    2- and 4-agent chase at N_ENVS from pbd_parity.composer_states, over
+    one pass and the whole step, by pbd_parity.RULES; env.step of every
+    composer scene (composer_main_path); the kernel's timings, bound and
+    plain version per System (COMPOSER_TIMED) and each launch."""
+    device = DEVICE
+    phase("composer: wide pbd_step parity")
+    gen = torch.Generator(device=device).manual_seed(7)
+    w_checks = {}
+    for name in COMPOSER_WIDE:
+        env_ = composer_env(name, N_ENVS, device)
+        checks_w = {}
+        for state, (qp, act) in composer_states(name, env_, N_ENVS, 0, device).items():
+            share = contact_share(env_.sys, qp, act)
+            overlap = capcap_share(env_.sys, qp)
+            rule = RULES[name][state]
+            print(f"parity state: composer {name}, {N_ENVS} envs, {state}, action "
+                  f"{tuple(act.shape)}, {share:.3f} in contact, {overlap:.3f} with ants "
+                  f"overlapping; one pass by {rule[0]}, the whole step by {rule[1]}")
+            checks_w[state] = {**hold_capcap(name, state, env_.sys, qp, act, gen,
+                                             f"composer {name} {state} "),
+                               "contact_share": share, "capcap_share": overlap}
+        w_checks[name] = checks_w
+
+    phase("composer: main paths")
+    mains = {scene: composer_main_path(tag, scene) for scene in COMPOSER_SCENES}
+
+    phase("composer: pbd_step timings")
+    scenes = {}
+    for scene in COMPOSER_TIMED:
+        env_ = composer_env(scene, N_ENVS, device)
+        sys_ = env_.sys
+        gen_t = torch.Generator(device=device).manual_seed(3)
+        qp = env_.reset(gen_t).qp
+        for _ in range(COMPOSER_SETTLE):
+            qp, _ = kernels.pbd_step_plain(sys_, qp, torch.rand(
+                (N_ENVS, env_.action_size), generator=gen_t, device=device) * 2 - 1)
+        act = torch.rand((N_ENVS, env_.action_size), generator=gen_t, device=device) * 2 - 1
+        b = pbd_bound(sys_, qp, act)
+        r = {"bound": dict(zip(("bound_ms", "bound_by", "ops", "bytes"), b[:4])),
+             "launch": pbd_launch_report(sys_, PBD_TIMING_ENVS, f"composer {scene}")}
+        r["plain_ms"] = cuda_ms(lambda: kernels.pbd_step_plain(sys_, qp, act), reps=1, warmup=1)
+        r["ms_by_envs"] = pbd_timings(tag, sys_, qp, act, b[0] / N_ENVS, f"composer {scene}")
+        print(f"bound {tag}: pbd_step composer {scene} at {N_ENVS} envs ({COMPOSER_SETTLE} twin "
+              f"steps after a reset): {b[3]} bytes -> {b[4]:.5f} ms at 3.35 TB/s; {b[2]} fp32 ops (the "
+              f"twin's, counted) -> {b[5]:.5f} ms at 67 TFLOP/s; plain twin "
+              f"{r['plain_ms']:.3f} ms/step")
+        scenes[scene] = r
+    return {"checks": w_checks, "main": mains, "scene": scenes}
+
+
+def chain_paths(tag, phase, gen_sys, gen_env):
+    """The chain entry (`gen_kernels.build_tiled_chain_fn`) on the v2 ant at
+    N_ENVS: from 10 env steps after a reset, 3 chained steps against 3
+    chained gen_step calls and gen_step_plain calls, bit for bit; the main
+    path, CHAIN_STEPS chained steps with exactly one launch each (counts
+    set to 0 just before, read just after); ms per launch graph-replayed
+    and host-issued against gen_bound; then env-steps/s of the chain
+    (host-issued and graph-replayed) and of env.step in turns
+    (brax_torch.tools.bench_v2_generalized.measure)."""
+    device = DEVICE
+    phase("v2 chain: parity")
+    bare = gen_env.unwrapped
+    n_frames = bare._n_frames
+    state = gen_env.reset(torch.Generator(device=device).manual_seed(4))
+    act_gen = torch.Generator(device=device).manual_seed(5)
+    act = lambda: torch.rand((N_ENVS, 8), generator=act_gen, device=device) * 2 - 1
+    for _ in range(10):
+        state = gen_env.step(state, act())
+    ps = state.pipeline_state
+    soa = lambda x: x.reshape(N_ENVS, -1).t().contiguous()
+    step_t, schema = gen_kernels.build_tiled_chain_fn(gen_sys, n_frames, N_ENVS)
+    carry = (soa(ps.q), soa(ps.qd), soa(ps.mass_mx_inv))
+    chained = [ps.q, ps.qd, ps.mass_mx_inv]
+    plain = list(chained)
+    acts = [act() for _ in range(3)]
+    identical = {}
+    for i, a in enumerate(acts):
+        carry, outs = step_t(carry, soa(a))
+        out = gen_kernels.gen_step(gen_sys, *chained, a, n_frames)
+        ref = gen_kernels.gen_step_plain(gen_sys, *plain, a, n_frames)
+        chained = [out["q"], out["qd"], out["minv"]]
+        plain = [ref["q"], ref["qd"], ref["minv"]]
+        for k in out:
+            identical[f"step {i + 1} {k} vs gen_step"] = bool(torch.equal(outs[k], soa(out[k])))
+            identical[f"step {i + 1} {k} vs gen_step_plain"] = bool(
+                torch.equal(outs[k], soa(ref[k])))
+    print(f"parity chain: 3 chained steps of {n_frames} frames at {N_ENVS} envs, every output "
+          f"bit for bit: {sum(identical.values())}/{len(identical)} identical")
+    if not all(identical.values()):
+        raise AssertionError(f"the chain differs from chained gen_step / gen_step_plain: "
+                             f"{[k for k, v in identical.items() if not v]}")
+
+    phase("main path: v2 chain")
+    # the JAX tool's rollout: from a reset, zero actions, no reset on the
+    # way.  The generalized step itself blows up in a few envs there (17 of
+    # 4096 by step 50, from step 35; in gen_step, gen_step_plain and
+    # env.step alike, PERF.md), so the chain is held to chained gen_step
+    # calls bit for bit with NaN where they have NaN
+    ps0 = gen_env.reset(torch.Generator(device=device).manual_seed(6)).pipeline_state
+    zero = torch.zeros((N_ENVS, 8), device=device)
+    carry0 = (soa(ps0.q), soa(ps0.qd), soa(ps0.mass_mx_inv))
+    act_t = soa(zero)
+    gen_kernels.gen_step_soa.launches = 0
+    c = carry0
+    for _ in range(CHAIN_STEPS):
+        c, outs = step_t(c, act_t)
+    torch.cuda.synchronize()
+    chain_launches = gen_kernels.gen_step_soa.launches
+    if chain_launches != CHAIN_STEPS:
+        raise AssertionError(f"{CHAIN_STEPS} chain steps made {chain_launches} launches")
+    # the same rollout through gen_step: the same bits
+    s_ = [ps0.q, ps0.qd, ps0.mass_mx_inv]
+    for _ in range(CHAIN_STEPS):
+        out = gen_kernels.gen_step(gen_sys, *s_, zero, n_frames)
+        s_ = [out["q"], out["qd"], out["minv"]]
+    same = all(bool(((x == soa(y)) | (torch.isnan(x) & torch.isnan(soa(y)))).all())
+               for x, y in zip(c, s_))
+    nonfinite = int((~torch.cat([torch.isfinite(x) for x in c]).all(dim=0)).sum())
+    print(f"main path v2 chain: {CHAIN_STEPS} chained steps from a reset, zero actions, "
+          f"{chain_launches} gen_step launches; bit for bit those of {CHAIN_STEPS} chained "
+          f"gen_step calls (NaN where they have NaN): {same}; envs with a non-finite carry: "
+          f"{nonfinite} of {N_ENVS}")
+    if not same or nonfinite > N_ENVS // 100:
+        raise AssertionError(f"the chain's rollout: same bits as gen_step {same}, {nonfinite} "
+                             f"non-finite envs")
+
+    phase("v2 chain: timings and turns")
+    ms_graph = probe.graph_us(lambda i: step_t(carry0, act_t), GRAPH_CALLS) / 1e3
+    ms_host = probe.host_us(lambda i: step_t(carry0, act_t), GRAPH_CALLS) / 1e3
+    ins = (ps.q, ps.qd, ps.mass_mx_inv, acts[0])
+    b = gen_bound(gen_sys, ins, n_frames)
+    plain_ms = cuda_ms(lambda: gen_kernels.gen_step_plain(gen_sys, *ins, n_frames), 1, 1)
+    print(f"timing {tag}: chain step (gen_step_soa, {n_frames} frames, {N_ENVS} envs) "
+          f"{ms_graph:.4f} ms graph-replayed, {ms_host:.4f} ms host-issued; plain "
+          f"{plain_ms:.3f} ms; bound {b[0]:.5f} ms by {b[1]}")
+    turns = bench_v2.measure("ant", N_ENVS, CHAIN_STEPS)
+    for kind, rates in turns["env_steps_per_s"].items():
+        print(f"timing {tag}: v2 ant {kind}: {', '.join(f'{x:,.0f}' for x in rates)} "
+              f"env-steps/s ({N_ENVS} envs, {CHAIN_STEPS} steps, in turns)")
+    print(f"parity chain vs pipeline.step, one frame from a reset: {turns['one_frame_parity']}")
+    return {"identical": identical, "launches": chain_launches, "rollout_same_bits": same,
+            "rollout_nonfinite_envs": nonfinite, "ms": ms_graph,
+            "ms_host_issued": ms_host, "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+            "ops": b[2], "bytes": b[3], "turns": turns, "schema": [k for k, _ in schema]}
+
+
+def wide_entry(co, name_limit):
+    """The kernels line's record of the PBD kernel's wide route (PBD_WIDE):
+    its launches on the wide scenes' main paths, its parity checks, and
+    its timings per wide System (the 2-agent chase's at the top level)."""
+    main = {s: r for s, r in co["main"].items() if r["wide"]}
+    chase = co["scene"]["chase"]
+    errs = [e for checks in co["checks"].values() for ck in checks.values()
+            for part in (ck, ck["one_pass"]) if part["rule"] == "max_errors"
+            for e in part["max_abs_err_by_field"].values()]
+    return {
+        "name": "pbd_step_wide",
+        "route": "cuda",
+        "source": "brax_torch/csrc/pbd_step.cu",
+        "replaces": "brax_tpu/sim/kernels.py:1283",
+        "replaces_function": "brax_tpu/sim/kernels.py::_build_tile_step, on scenes wider than "
+                             "a warp",
+        "design": "PBD_WIDE: one env a block of 64-256 threads, its lanes exchanging through "
+                  "shared memory (a barrier, a write, a barrier, a read)",
+        "launches": sum(r["launches"] for r in main.values()),
+        "launches_by_path": {f"composer {s} env.step": r["launches"] for s, r in main.items()},
+        "max_abs_err": max(errs),
+        "max_abs_err_scope": "every env of every check held by max_errors (rounding-decided "
+                             "outliers included); the chaotic checks (chaos_rule) under checks",
+        "rules": {name: RULES[name] for name in COMPOSER_WIDE},
+        "tolerance": TOLERANCE,
+        "checks": co["checks"],
+        "ms": chase["ms_by_envs"][N_ENVS]["graph"],
+        "ms_host_issued": chase["ms_by_envs"][N_ENVS]["host"],
+        "plain_ms": chase["plain_ms"],
+        "bound_ms": chase["bound"]["bound_ms"],
+        "bound_by": chase["bound"]["bound_by"],
+        "library_ms": None,
+        "shape": f"the 2-agent chase at {N_ENVS} envs (64 lanes an env); by_scene: sumo and "
+                 f"the 4-agent chase",
+        "by_scene": {s: {"ms": co["scene"][s]["ms_by_envs"][N_ENVS]["graph"],
+                         "ms_host_issued": co["scene"][s]["ms_by_envs"][N_ENVS]["host"],
+                         "ms_by_envs": co["scene"][s]["ms_by_envs"],
+                         "plain_ms": co["scene"][s]["plain_ms"], **co["scene"][s]["bound"],
+                         "launch": co["scene"][s]["launch"]}
+                     for s in ("chase", "sumo", "chase4")},
+        "card": name_limit,
+    }
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -2264,6 +2564,7 @@ def main():
     b_envs = {name: envs.create(name, episode_length=1000, batch_size=N_ENVS)
               for name in FETCH_ENV_STEPS}
     s_envs = {name: spring_env(name, N_ENVS, device) for name in SPRING_SCENES}
+    comp_sys = {scene: composer_env(scene, N_ENVS, device).sys for scene in COMPOSER_SCENES}
     built = cuda_build.build(kernels.kernel_source(sys_), fused_mlp.SOURCE, probe.SOURCE,
                              *(kernels.kernel_source(e.sys) for e in h_envs.values()),
                              *(kernels.kernel_source(e.sys) for e in c_envs.values()),
@@ -2276,6 +2577,9 @@ def main():
                              *(kernels.kernel_source(e.sys) for e in s_envs.values()),
                              *(kernels.kernel_source(one_pass(e.sys)) for e in s_envs.values()),
                              kernels.kernel_source(twister_swimmer(device)),
+                             *(kernels.kernel_source(s_) for s_ in comp_sys.values()),
+                             *(kernels.kernel_source(one_pass(comp_sys[name]))
+                               for name in ("chase", "chase4")),
                              *(gen_kernels.kernel_source(s) for s in scenes))
     print(f"build: {', '.join(p.name for p in built.values())} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a, in parallel)")
@@ -2288,6 +2592,10 @@ def main():
             print(f"{name} (legacy spring){label}: " + " ".join(
                 line.strip() for line in kernels.ptxas_report(s_).splitlines()
                 if "registers" in line or "spill" in line))
+    for scene in COMPOSER_TIMED:
+        print(f"composer {scene}: " + " ".join(
+            line.strip() for line in kernels.ptxas_report(comp_sys[scene]).splitlines()
+            if "registers" in line or "spill" in line))
     print(fused_mlp.ptxas_report().strip())
     print(probe.ptxas_report().strip())
     for scene in scenes:
@@ -2452,6 +2760,7 @@ def main():
     b_scene, b_main, b_launches = fe["scene"], fe["main"], fe["launches"]
     sp_ = spring_paths(tag, phase, s_envs)
     s_scene, s_main, s_launches = sp_["scene"], sp_["main"], sp_["launches"]
+    co = composer_paths(tag, phase)
 
     def fused_entry(kind, replaces, function):
         main = ("value", 5120, "bf16")
@@ -2620,6 +2929,9 @@ def main():
         print(f"timing {tag}: gen_step at {n_sweep} envs by envs (warps) per block (ms per "
               f"launch): {sweep[n_sweep]}; default {default} ({sweep[n_sweep][default]:.4f} ms), "
               f"fastest {best} ({sweep[n_sweep][best]:.4f} ms)")
+
+    # -- the chain entry on the v2 ant -------------------------------------------------
+    ch = chain_paths(tag, phase, gen_sys, gen_env)
 
     # -- the other v2 envs: parity at 4096 envs, then each main path ------------------
     phase("v2 envs: gen_step parity")
@@ -2867,6 +3179,8 @@ def main():
                              **{f"{name} (legacy spring) {'sys' if 'sys_step_ms' in r else 'env'}"
                                 f".step": r["launches"] for name, r in s_main.items()},
                              "PPO spring ant": s_launches["pbd_step"],
+                             **{f"composer {scene} env.step": r["launches"]
+                                for scene, r in co["main"].items()},
                              **{f"APG v1 ant {kind}": r["launches"]["pbd_step"]
                                 for kind, r in apg_run["v1 ant"].items()},
                              **{f"SAC {label}": r["launches"]["physics"]
@@ -2922,9 +3236,17 @@ def main():
                 "launches_ppo": s_launches["pbd_step"] if name == "ant" else None}
                for name, r in s_scene.items()},
             "swimmer_twister": {"checks": {STATES[1]: g["twister"]}},
+            **{f"composer {scene}": {
+                "ms": r["ms_by_envs"][N_ENVS]["graph"],
+                "ms_host_issued": r["ms_by_envs"][N_ENVS]["host"],
+                "ms_by_envs": r["ms_by_envs"], "plain_ms": r["plain_ms"], **r["bound"],
+                "launch": r["launch"], "main_path": co["main"][scene],
+                **({"checks": co["checks"][scene]} if scene in co["checks"] else {})}
+               for scene, r in co["scene"].items()},
         },
         "card": name_limit,
     },
+        wide_entry(co, name_limit),
         fused_entry("fwd", "brax_tpu/training/fused_mlp.py:204",
                     "brax_tpu/training/fused_mlp.py::_fwd_kernel"),
         fused_entry("bwd", "brax_tpu/training/fused_mlp.py:247",
@@ -2984,6 +3306,31 @@ def main():
                 "contact_share_lowered": v2_contact[name],
                 "launch": gen_launches_by_scene[name],
             } for name, record in v2_records.items()},
+            "card": name_limit,
+        },
+        {
+            "name": "gen_step_chain",
+            "route": "cuda",
+            "source": "brax_torch/csrc/gen_step.cu",
+            "replaces": "brax_tpu/v2/generalized/kernels.py:1181",
+            "replaces_function": "brax_tpu/v2/generalized/kernels.py::build_tiled_chain_fn "
+                                 "(its pallas_call, :1164)",
+            "entry": "brax_torch.v2.generalized.kernels.build_tiled_chain_fn: one gen_step_soa "
+                     "launch a step on the (fields, N) carry, no transposes",
+            "launches": ch["launches"],
+            "max_abs_err": 0.0 if all(ch["identical"].values()) else None,
+            "tolerance": "bit for bit against chained gen_step and gen_step_plain",
+            "bit_identical": ch["identical"],
+            "ms": ch["ms"],
+            "ms_host_issued": ch["ms_host_issued"],
+            "plain_ms": ch["plain_ms"],
+            "bound_ms": ch["bound_ms"],
+            "bound_by": ch["bound_by"],
+            "library_ms": None,
+            "ops": ch["ops"],
+            "bytes": ch["bytes"],
+            "env_steps_per_s_in_turns": ch["turns"]["env_steps_per_s"],
+            "one_frame_parity_vs_pipeline": ch["turns"]["one_frame_parity"],
             "card": name_limit,
         },
         {

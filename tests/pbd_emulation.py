@@ -2,9 +2,11 @@
 
 `brax_torch/csrc/pbd_step.cu`, with a System's scene header in front
 (`brax_torch.sim.kernels.scene_header`), is compiled by the host C++
-compiler against a few lines that stand in for CUDA: a warp is 32 OS
-threads, `__shfl_sync` a store, a barrier, a load and a barrier, and a block
-is one warp.  With PBD_IEEE_DIV_SQRT defined the kernel divides and takes
+compiler against a few lines that stand in for CUDA: a block is
+PBD_THREADS OS threads (one warp, or an env of 64-256 lanes on the wide
+route), `__shfl_sync` a store, a barrier, a load and a barrier,
+`__syncthreads` a barrier, and a `__shared__` array a global one (the
+blocks run one after another).  With PBD_IEEE_DIV_SQRT defined the kernel divides and takes
 square roots with the host's IEEE `/` and sqrtf, so what this checks is the
 lane design (the plan, the header's lists, the shuffles, the roles of the
 lanes), not the card's arithmetic; tests/test_torch_cuda.py and
@@ -53,15 +55,18 @@ struct Dim { unsigned x; };
 thread_local Dim threadIdx, blockIdx;
 typedef void* cudaStream_t;
 template <class T> inline T __ldg(const T* p) { return *p; }
-struct Warp { std::barrier<> bar{32}; float slots[32]; };
-thread_local Warp* g_warp;
+struct Block { std::barrier<>* bar; float slots[256]; };
+thread_local Block* g_block;
 inline float __shfl_sync(unsigned, float v, int src, int width) {
-  g_warp->slots[threadIdx.x] = v;
-  g_warp->bar.arrive_and_wait();
-  float r = g_warp->slots[(threadIdx.x & ~(width - 1)) + src];
-  g_warp->bar.arrive_and_wait();
+  g_block->slots[threadIdx.x] = v;
+  g_block->bar->arrive_and_wait();
+  float r = g_block->slots[(threadIdx.x & ~(width - 1)) + src];
+  g_block->bar->arrive_and_wait();
   return r;
 }
+inline void __syncthreads() { g_block->bar->arrive_and_wait(); }
+// one block runs at a time: a __shared__ array is a global one
+#define __shared__
 """
 
 MAIN = r"""
@@ -78,13 +83,14 @@ int main(int argc, char** argv) {
   // (reference_clip) reads them, as a kernel on the card reads what lies there
   for (int q = 0; q < 5; ++q) t[q].resize(t[q].size() + 16, NAN);
   for (int b = 0; b < (n + PBD_ENVS_PER_BLOCK - 1) / PBD_ENVS_PER_BLOCK; ++b) {
-    Warp w;
+    std::barrier<> bar(PBD_THREADS);
+    Block w{&bar, {}};
     std::vector<std::thread> lanes;
-    for (int l = 0; l < 32; ++l)
+    for (int l = 0; l < PBD_THREADS; ++l)
       lanes.emplace_back([&, l] {
         blockIdx.x = b;
         threadIdx.x = l;
-        g_warp = &w;
+        g_block = &w;
         pbd_step_kernel(t[0].data(), t[1].data(), t[2].data(), t[3].data(), t[4].data(),
                         t[5].data(), t[6].data(), t[7].data(), t[8].data(), t[9].data(),
                         t[10].data(), n, n_act);

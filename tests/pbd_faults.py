@@ -53,7 +53,14 @@ code, made in a copy under the build directory:
   before it, not in its group alone (halfcheetah's feet: the floor's group,
   then the feet's capsule-capsule pair);
 - `spring_forces_twice`: a legacy-spring body adds its thrusters' and
-  twisters' velocity changes twice.
+  twisters' velocity changes twice;
+- `wide_warp_local`: on the wide route (PBD_WIDE), a V3 exchange reads
+  its source's lane within the reader's first warp (src % 32), as a
+  warp's shuffle would: every contact, joint or body lane past lane 31
+  hands its vector to the wrong lane;
+- `wide_v3_swapped`: a V3 exchange hands back its y and z swapped;
+- `wide_float_own_lane`: a float exchange reads the reader's own slot, not
+  its source's (a body's contact counts are its own lane's).
 
 `b_mass` and `no_friction` are planted in halfcheetah only: pusher's
 capsule-capsule pairs have masses and inverse inertias of 1 on both sides
@@ -71,7 +78,9 @@ faults are planted in fetch, from its states (`pbd_parity.fetch_states`);
 the legacy-spring faults in the spring Systems of ant, humanoid_legacy,
 halfcheetah (from its feet together, `pbd_parity.capcap_state`, where both
 of a foot's groups act) and inverted_pendulum, named "<env>_spring", from
-`pbd_parity.spring_states`.
+`pbd_parity.spring_states`.  The wide faults are planted in the
+composer's 2- and 4-agent chase ("chase", "chase4": `pbd_parity.
+COMPOSER_WIDE`), from `pbd_parity.composer_states`.
 
 On the card,
 
@@ -80,7 +89,8 @@ On the card,
 holds this package's kernel and each planted one against the twin at
 4096 envs of each scene (default: v1 halfcheetah, pusher,
 inverted_pendulum, inverted_double_pendulum, swimmer, reacherangle, grasp,
-fetch and the made scenes grasp_padded, pusher_oneway and swimmer_twister),
+fetch, the made scenes grasp_padded, pusher_oneway and swimmer_twister,
+the spring Systems and the composer's chase and 4-agent chase),
 from the states `chip_smoke.py` holds them in (a reset, 10 twin steps
 after it and, for the capsule-capsule scenes, the pairs overlapping;
 grasp's reset and its claw closed on the ball; fetch's reset and its feet
@@ -158,6 +168,13 @@ FAULTS = {
     "spring_forces_twice": ("  dang_a = dang_a + bc.fang;\n  dvel = dvel + bc.fvel;",
                             "  dang_a = dang_a + bc.fang + bc.fang;\n"
                             "  dvel = dvel + bc.fvel + bc.fvel;"),
+    "wide_warp_local": ("return v3(pbd_xchg[0][src], pbd_xchg[1][src], pbd_xchg[2][src]);",
+                        "return v3(pbd_xchg[0][src % 32], pbd_xchg[1][src % 32], "
+                        "pbd_xchg[2][src % 32]);"),
+    "wide_v3_swapped": ("return v3(pbd_xchg[0][src], pbd_xchg[1][src], pbd_xchg[2][src]);",
+                        "return v3(pbd_xchg[0][src], pbd_xchg[2][src], pbd_xchg[1][src]);"),
+    "wide_float_own_lane": ("  return pbd_xchg[0][src];\n",
+                            "  return pbd_xchg[0][threadIdx.x];\n"),
 }
 # the scenes a fault changes anything in
 FAULT_SCENES = {"b_sign": ("halfcheetah", "pusher"), "no_b_gather": ("halfcheetah", "pusher"),
@@ -175,7 +192,9 @@ FAULT_SCENES = {"b_sign": ("halfcheetah", "pusher"), "no_b_gather": ("halfcheeta
                 "spring_hinge_sign": ("ant_spring",),
                 "universal_torque_sign": ("humanoid_legacy_spring",),
                 "spring_count_all_groups": ("halfcheetah_spring",),
-                "spring_forces_twice": ("inverted_pendulum_spring",)}
+                "spring_forces_twice": ("inverted_pendulum_spring",),
+                "wide_warp_local": ("chase", "chase4"), "wide_v3_swapped": ("chase", "chase4"),
+                "wide_float_own_lane": ("chase", "chase4")}
 CAPCAP_SCENES = ("halfcheetah", "pusher")
 FORCE_SCENES = ("inverted_pendulum", "inverted_double_pendulum", "swimmer", "reacherangle")
 GRASP_SCENES = ("grasp", "grasp_padded")
@@ -187,8 +206,10 @@ MADE_SCENES = {"grasp_padded": ("grasp", pp.padded_grasp),
 # the legacy-spring Systems the spring faults are planted in
 SPRING_FAULT_SCENES = ("ant_spring", "humanoid_legacy_spring", "halfcheetah_spring",
                        "inverted_pendulum_spring")
+# the composer's wide scenes (pbd_parity.COMPOSER_WIDE)
+WIDE_SCENES = tuple(pp.COMPOSER_WIDE)
 SCENES = (CAPCAP_SCENES + FORCE_SCENES + ("grasp", "fetch") + tuple(MADE_SCENES)
-          + SPRING_FAULT_SCENES)
+          + SPRING_FAULT_SCENES + WIDE_SCENES)
 N = 4096
 
 
@@ -199,6 +220,8 @@ def scene_env(name, n, device):
 
     if name.endswith("_spring"):
         return pp.spring_env(name[:-len("_spring")], n, device)
+    if name in WIDE_SCENES:
+        return pp.composer_env(name, n, device)
     return envs.create(MADE_SCENES.get(name, (name,))[0], episode_length=1000, batch_size=n,
                        device=device)
 
@@ -266,6 +289,8 @@ def states(name, env, device, sys_=None):
     (default: env.sys)."""
     if name.endswith("_spring"):
         return spring_states(name, env, N, device, sys_)
+    if name in WIDE_SCENES:
+        return pp.composer_states(name, env, N, 0, device)
     base = MADE_SCENES[name][0] if name in MADE_SCENES else name
     if base == "grasp":
         return pp.grasp_states(env.unwrapped, N, 0, device)
@@ -361,7 +386,8 @@ def main(argv):
                 sys_ = systems[name, pass_]
                 # the chaos rule's readings for the chaotic capsule-capsule and
                 # spring scenes
-                chaotic = name in CAPCAP_SCENES + ("pusher_oneway",) + SPRING_FAULT_SCENES
+                chaotic = name in (CAPCAP_SCENES + ("pusher_oneway",) + SPRING_FAULT_SCENES
+                                   + WIDE_SCENES)
                 spread = pp.twin_spread(sys_, qp, act) if chaotic else None
                 own = pp.twin_own_outside(sys_, qp, act, gen) if chaotic else None
                 kernels_ = {"kernel": kernels.pbd_step,

@@ -1463,3 +1463,206 @@ def test_fused_policy_dx_reaches_the_physics_as_the_plain_chains(cuda, monkeypat
     err = float((got - want).abs().max())
     assert bool(torch.isfinite(got).all()) and float(want.abs().max()) > 0
     assert err <= BF16_REL * float(want.abs().max()), err
+
+
+# ---------------------------------------------------------------------------
+# the composer's scenes: the PBD kernel past one warp (PBD_WIDE)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def wide_states():
+    """{name: (env, {state: (qp, act)})} of the 2- and 4-agent chase at 4096
+    envs (pbd_parity.composer_states, seed 0), their kernels and one-pass
+    kernels built together."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel runs only there")
+    from brax_torch.tools import pbd_parity as pp
+
+    envs_ = {name: pp.composer_env(name, 4096, "cuda") for name in pp.COMPOSER_WIDE}
+    cuda_build.build(*(kernels.kernel_source(s) for e in envs_.values()
+                       for s in (e.sys, pp.one_pass(e.sys))))
+    return {name: (e, pp.composer_states(name, e, 4096, 0, "cuda")) for name, e in envs_.items()}
+
+
+@pytest.mark.parametrize("name", ["chase", "chase4"])
+def test_wide_kernel_matches_twin_by_its_rules(cuda, wide_states, name):
+    """The wide route (64 lanes for the 2-agent chase, 256 for the 4-agent
+    chase, an env a block) against the twin at 4096 envs from a reset, 10
+    twin steps after it and with the ants overlapping, over one pass and the
+    whole step, each by the rule pbd_parity.RULES names (chip_smoke.py's
+    check); two launches a state."""
+    from brax_torch.tools import pbd_parity as pp
+
+    env, states = wide_states[name]
+    p = kernels.plan(env.sys)
+    assert p.wide and p.envs_per_block == 1 and p.lanes == (64 if name == "chase" else 256)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for state, (qp, act) in states.items():
+        before = kernels.pbd_step_launch.launches
+        pp.hold_capcap(name, state, env.sys, qp, act, gen, f"{name} {state} ")
+        assert kernels.pbd_step_launch.launches == before + 2
+
+
+@pytest.mark.parametrize("n", [1, 3, 4097])
+def test_wide_kernel_ragged_batches(cuda, n):
+    """The 2-agent chase on ragged batches (an env a block, so every batch
+    is whole blocks), 10 twin steps after a reset, by its rules."""
+    from brax_torch.tools import pbd_parity as pp
+
+    env = pp.composer_env("chase", n, "cuda")
+    qp, act = pp.composer_states("chase", env, n, 1, "cuda")[pp.COMPOSER_STATES[1]]
+    assert kernels.launch_geometry(kernels.plan(env.sys), n) == (n, 64)
+    pp.hold_capcap("chase", pp.COMPOSER_STATES[1], env.sys, qp, act,
+                   torch.Generator(device=cuda).manual_seed(7), f"chase {n} ")
+
+
+def test_wide_kernel_gives_the_same_bits_twice_and_from_a_graph(cuda, wide_states):
+    from brax_torch.tools import pbd_parity as pp
+
+    env, states = wide_states["chase4"]
+    qp, act = states[pp.COMPOSER_STATES[2]]
+    want, info_want = kernels.pbd_step(env.sys, qp, act)
+    again, info_again = kernels.pbd_step(env.sys, qp, act)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernels.pbd_step(env.sys, qp, act)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, info_got = kernels.pbd_step(env.sys, qp, act)
+    got.vel.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    fields = lambda q, i: (q.pos, q.rot, q.vel, q.ang, i.contact.vel, i.contact.ang)
+    for x, y, z in zip(fields(want, info_want), fields(again, info_again),
+                       fields(got, info_got)):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+@pytest.mark.parametrize("fault", ["wide_warp_local", "wide_v3_swapped", "wide_float_own_lane"])
+def test_planted_wide_fault_fails_its_rule(cuda, wide_states, fault):
+    """A fault planted in the wide route's exchange (tests/pbd_faults.py)
+    fails the rule chip_smoke.py holds the 2-agent chase's state 10 twin
+    steps after a reset to over one pass (the rounding rule)."""
+    from brax_torch.tools import pbd_parity as pp
+    from brax_torch.tools import pbd_turns
+    from tests import pbd_faults
+
+    env, states = wide_states["chase"]
+    qp, act = states[pp.COMPOSER_STATES[1]]
+    sys_ = pp.one_pass(env.sys)
+    assert pp.RULES["chase"][pp.COMPOSER_STATES[1]][0] == "max_errors"
+    step = pbd_faults.card_step(pbd_turns.load(pbd_turns.other_source(
+        sys_, pbd_faults.planted_path(fault))))
+    got = pp.fields(*step(sys_, qp, act))
+    r = pp.rounding_rule(sys_, qp, act, got, torch.Generator(device=cuda).manual_seed(7))
+    assert not r["passes"], (fault, len(r["outliers"]), r["errs"])
+
+
+def test_composer_env_step_launches_the_kernel_once(cuda):
+    """Every composer scene (the 4-agent chase among them) at 64 envs: one
+    PBD launch a step, finite observations, a reward an agent or one."""
+    from brax_torch.tools import pbd_parity as pp
+
+    for task in pp.COMPOSER_SCENES:
+        env = pp.composer_scene(task, 64, cuda, episode_length=1000)
+        state = env.reset(torch.Generator(device=cuda).manual_seed(0))
+        before = kernels.pbd_step_launch.launches
+        for _ in range(3):
+            state = env.step(state, torch.rand((64, env.action_size), device=cuda) * 2 - 1)
+        assert kernels.pbd_step_launch.launches == before + 3, task
+        agents = len(env.unwrapped.agent_names)
+        assert state.reward.shape == ((64, agents) if agents else (64,)), task
+        assert bool(torch.isfinite(state.obs).all()), task
+
+
+@pytest.mark.parametrize("name", ["ant", "halfcheetah", "grasp", "fetch", "ant_spring",
+                                  "ant_on_ball"])
+def test_one_warp_scenes_compile_as_without_the_wide_route(cuda, name):
+    """A one-warp scene's kernel holds none of the wide route: its SASS
+    equals that of a build whose source has every PBD_WIDE block cut out
+    (the shuffles kept); the parent's bits and speed are held by
+    `python -m brax_torch.tools.pbd_turns`."""
+    from brax_torch import envs
+    from brax_torch.composer import envs as composer_envs
+
+    if name == "ant_spring":
+        sys_ = envs.create("ant", batch_size=1, legacy_spring=True).sys
+    elif name == "ant_on_ball":
+        sys_ = composer_envs.create_env(name, batch_size=1).sys
+    else:
+        sys_ = envs.create(name, batch_size=1).sys
+    assert not kernels.plan(sys_).wide
+    whole = kernels.kernel_source(sys_)
+    cut = whole.with_name(whole.stem + "_without_wide.cu")
+    cut.write_text(_without_blocks(whole.read_text(), ("PBD_WIDE",)))
+    assert "#ifdef PBD_WIDE" in whole.read_text() and "#ifdef PBD_WIDE" not in cut.read_text()
+    assert _sass(whole) == _sass(cut) != []
+
+
+# ---------------------------------------------------------------------------
+# the generalized kernel's chain entry
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [33, 4096])
+def test_chain_equals_chained_gen_step_bit_for_bit(cuda, n):
+    """Three chained steps of the chain (one launch each, no transposes)
+    against three chained gen_step calls (the batch-first route) and
+    gen_step_plain calls: every output the same bits."""
+    sys, (q, qd, minv, act) = _gen_state(cuda, n)
+    soa = lambda x: x.reshape(n, -1).t().contiguous()
+    step_t, schema = gen_kernels.build_tiled_chain_fn(sys, 5, n)
+    carry, state, plain = (soa(q), soa(qd), soa(minv)), [q, qd, minv], [q, qd, minv]
+    for _ in range(3):
+        before = gen_kernels.gen_step_soa.launches
+        carry, outs = step_t(carry, soa(act))
+        assert gen_kernels.gen_step_soa.launches == before + 1
+        out = gen_kernels.gen_step(sys, *state, act, 5)
+        ref = gen_kernels.gen_step_plain(sys, *plain, act, 5)
+        state, plain = [out["q"], out["qd"], out["minv"]], [ref["q"], ref["qd"], ref["minv"]]
+        assert [k for k, _ in schema] == list(outs)
+        for k in outs:
+            assert torch.equal(outs[k], soa(out[k])) and torch.equal(outs[k], soa(ref[k])), k
+
+
+def test_chain_replays_from_a_cuda_graph(cuda):
+    """Three chained steps captured in one CUDA graph and replayed: the same
+    bits as the host-issued chain."""
+    n = 512
+    sys, (q, qd, minv, act) = _gen_state(cuda, n)
+    soa = lambda x: x.reshape(n, -1).t().contiguous()
+    step_t, _ = gen_kernels.build_tiled_chain_fn(sys, 5, n)
+    carry0, act_t = (soa(q), soa(qd), soa(minv)), soa(act)
+
+    def chain():
+        c = carry0
+        for _ in range(3):
+            c, _ = step_t(c, act_t)
+        return c
+
+    want = chain()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chain()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = chain()
+    got[0].fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(want, got))
+
+
+def test_chain_raises_on_unsupported_system_and_mixed_inputs(cuda):
+    sys, (q, qd, minv, act) = _gen_state(cuda, 32, steps=0)
+    other = dataclasses.replace(sys, actuator_types="p" * 8)
+    with pytest.raises(NotImplementedError, match="actuator types"):
+        gen_kernels.build_tiled_chain_fn(other, 1, 32)
+    step_t, _ = gen_kernels.build_tiled_chain_fn(sys, 1, 32)
+    soa = lambda x: x.reshape(32, -1).t().contiguous()
+    with pytest.raises(ValueError, match="one CUDA device"):
+        step_t((soa(q), soa(qd), soa(minv)), soa(act).cpu())

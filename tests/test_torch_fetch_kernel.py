@@ -72,7 +72,7 @@ def _within_tolerance(sys, qp, act):
 
 
 def test_fetch_header_and_plan():
-    """13 bodies, 10 joints and actuators, 32 contacts (the kernel's
+    """13 bodies, 10 joints and actuators, 32 contacts (a warp's lanes,
     MAX_CONTACTS): 32 lanes, one env a warp; no section defined; each
     contact lane's record is a capsule-plane one whose end is a box corner
     and whose radius is 0; each lower leg gathers its eight corners in

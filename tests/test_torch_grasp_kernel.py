@@ -56,7 +56,7 @@ def _within_tolerance(sys, qp, act):
 
 
 def test_grasp_header_and_plan():
-    """16 bodies (the kernel's MAX_BODIES), 12 spherical joints and angle
+    """16 bodies (a lane each, half a warp), 12 spherical joints and angle
     actuators, 7 contacts: 16 lanes, 2 envs a warp; the one-way pair's lane
     flagged in CONTACT_ONEWAY, its capsule-capsule record in CAPCAP_F, its
     body a (the ball) gathering it and its body b (the palm) not; all 39

@@ -376,7 +376,7 @@ def test_source_path_per_system():
     ({"scene": "humanoid"}, []),
     ({"scene": "humanoid", "actuator_kind": "angle"}, []),
     ({"scene": "swimmer"}, []),
-    ({"num_bodies": 17}, ["17 bodies (the kernel holds 16)"]),
+    ({"num_bodies": 257}, ["257 bodies (the kernel holds 256)"]),
     ({"n_act": 65}, ["65 action columns (the kernel holds 64)"]),
     ({"joint_kind": "spring_spherical"}, ["spring_spherical joints"]),
     ({"scene": "humanoid", "joint_groups": "ant"},
