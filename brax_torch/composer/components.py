@@ -4,8 +4,8 @@ Counterpart of `brax_tpu/composer/components.py`.  Each component provides
 a scene-config factory (bodies, joints, actuators and forces without a
 ground plane), a root body, the bodies it collides with, a termination
 function over the batch and its default observers.  The octopus component
-(a legacy-spring scene of 28 bodies and 50 contact points) is not ported
-yet: loading it raises NotImplementedError (ROADMAP.md, queue A item 11).
+is a legacy-spring scene (28 bodies and 50 contact points once composed),
+which the PBD kernel's wide route steps.
 """
 
 from __future__ import annotations
@@ -282,9 +282,21 @@ def _pro_ant(num_legs: int = 10) -> ComponentSpecs:
 
 
 def _octopus() -> ComponentSpecs:
-    raise NotImplementedError(
-        "the octopus component (legacy spring, 28 bodies, 50 contact points) is not ported "
-        "yet (see ROADMAP.md, queue A item 11)")
+    """27-body octopus: 8 three-segment tentacles under a soft body, root
+    frozen (it hangs from the root); legacy spring."""
+    from brax_torch.composer.assets.octopus import octopus_config
+
+    config = octopus_config()
+    collides = tuple(
+        b.name for b in config.bodies if b.name not in ("octopus", "octopus_body")
+    )
+    return ComponentSpecs(
+        config=config,
+        root="octopus",
+        collides=collides,
+        term_fn=upright_term_fn,
+        observers=("root_z_joints",),
+    )
 
 
 def _humanoid() -> ComponentSpecs:

@@ -143,6 +143,16 @@ RULES = {
     "chase4": {"reset": ("chaos_rule", "chaos_rule"),
                "after 10 twin steps": ("max_errors", "chaos_rule"),
                "ants overlapping": ("chaos_rule", "chaos_rule")},
+    # octopus_run (OCTOPUS_STATES below; the wide route in legacy spring,
+    # one substep / the whole step): the twin itself left TOLERANCE under
+    # CHAOS_NOISE in 4000-4002 / 1007-1034 of 4096 envs at the reset (every
+    # tentacle tip on the floor to the last bit), 1 / 1-3 after 10 twin
+    # steps and 0-2 / 3-4 from the jiggled state (three draws on the CPU,
+    # octopus_states' seed 0): the chaos rule at the reset and over the
+    # jiggled whole step (at MAX_OUTLIERS), the rounding rule elsewhere
+    "octopus_run": {"reset": ("chaos_rule", "chaos_rule"),
+                    "after 10 twin steps": ("max_errors", "max_errors"),
+                    "jiggled": ("max_errors", "chaos_rule")},
 }
 
 
@@ -620,16 +630,15 @@ def spring_states(name, env, n, seed, device, sys_=None):
     return {SPRING_STATES[0]: (reset, act()), SPRING_STATES[1]: (settled, act())}
 
 
-# every composer scene the port builds, by the composer registry's task
-# name: (task, desc kwargs); "chase4" is the 4-agent chase of
-# brax_torch/tools/bench_composer.py.  octopus_run waits (ROADMAP.md, queue
-# A item 11)
+# every composer scene of the registry, by its task name: (task, desc
+# kwargs); "chase4" is the 4-agent chase of brax_torch/tools/bench_composer.py
 COMPOSER_SCENES = {"ant_run": ("ant_run", {}), "pro_ant_run": ("pro_ant_run", {}),
                    "ant_push": ("ant_push", {}), "ant_on_ball": ("ant_on_ball", {}),
                    "halfcheetah_run": ("halfcheetah_run", {}),
                    "humanoid_run": ("humanoid_run", {}), "ant_chase": ("ant_chase", {}),
                    "chase": ("chase", {}), "follow": ("follow", {}), "sumo": ("sumo", {}),
-                   "chase4": ("chase", {"num_agents": 4})}
+                   "chase4": ("chase", {"num_agents": 4}),
+                   "octopus_run": ("octopus_run", {})}
 # the wide scenes (PBD_WIDE) held against the twin: the 2-agent chase and
 # the 4-agent chase, each from a reset (the ants on a circle of radius 2,
 # on the ground), 10 twin steps after it on uniform actions, and with the
@@ -686,3 +695,30 @@ def composer_states(name, env, n, seed, device):
     return {COMPOSER_STATES[0]: (reset, act()), COMPOSER_STATES[1]: (settled, act()),
             COMPOSER_STATES[2]: (ants_overlapping(env, reset, gen), act())}
 
+
+# octopus_run: legacy spring on the wide route (28 bodies, 26 spring
+# hinges, 50 one-way capsule-plane contact points: 64 lanes), held from a
+# reset, 10 twin steps after it on uniform actions, and the reset with its
+# velocities and angular velocities moved by JIGGLE x a standard normal
+# draw under the frozen-axis masks (as tests/test_pallas_kernel.py jiggles
+# its spring scene), each on one more action uniform in [-1, 1]
+OCTOPUS = "octopus_run"
+OCTOPUS_STATES = ("reset", "after 10 twin steps", "jiggled")
+JIGGLE = 0.3
+
+
+def octopus_states(env, n, seed, device):
+    """{state: (qp, act)} of octopus_run (`env` unwrapped, n envs) at
+    OCTOPUS_STATES."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    act = lambda: torch.rand((n, env.action_size), generator=gen, device=device) * 2 - 1
+    reset = env.reset(gen).qp
+    settled = reset
+    for _ in range(10):
+        settled, _ = kernels.pbd_step_plain(env.sys, settled, act())
+    integ = env.sys.integrator
+    kick = lambda x, mask: x + JIGGLE * torch.randn(x.shape, generator=gen, device=device) * mask
+    jiggled = type(reset)(pos=reset.pos, rot=reset.rot, vel=kick(reset.vel, integ.pos_mask),
+                          ang=kick(reset.ang, integ.rot_mask))
+    return {OCTOPUS_STATES[0]: (reset, act()), OCTOPUS_STATES[1]: (settled, act()),
+            OCTOPUS_STATES[2]: (jiggled, act())}

@@ -13,9 +13,11 @@ Systems of the registry: ant, humanoid (humanoid_legacy builds the same
 System), humanoidstandup, halfcheetah, pusher, inverted_pendulum,
 inverted_double_pendulum, swimmer, reacherangle, reacher, grasp, acrobot,
 ur5e, fetch, hopper, walker2d; the eight legacy-spring Systems, named
-"<env>_spring"; and the composer's one-warp scenes pro_ant_run, ant_push,
+"<env>_spring"; the composer's one-warp scenes pro_ant_run, ant_push,
 ant_on_ball, halfcheetah_run and humanoid_run, ant_run's System being v1
-ant's) both builds' SASS instructions are
+ant's; and its wide ones, the 2-agent chase, sumo, the 4-agent chase
+("chase4") and octopus_run, follow's and ant_chase's Systems being the
+chase's) both builds' SASS instructions are
 compared (cuobjdump; the same code when equal), and both kernels step the
 same 4096 envs, 10 twin steps after a reset (in contact), and the first
 2048 and 128 of them: the largest difference of their outputs (0: the
@@ -41,7 +43,8 @@ from brax_torch.tools import probe_overhead as probe
 
 SPRING_SCENES = ("ant", "halfcheetah", "humanoid_legacy", "humanoidstandup", "inverted_pendulum",
                  "inverted_double_pendulum", "reacher", "reacherangle")
-COMPOSER_SCENES = ("pro_ant_run", "ant_push", "ant_on_ball", "halfcheetah_run", "humanoid_run")
+COMPOSER_SCENES = ("pro_ant_run", "ant_push", "ant_on_ball", "halfcheetah_run", "humanoid_run",
+                   "chase", "sumo", "chase4", "octopus_run")
 SCENES = ("ant", "humanoid", "humanoidstandup", "halfcheetah", "pusher", "inverted_pendulum",
           "inverted_double_pendulum", "swimmer", "reacherangle", "reacher", "grasp", "acrobot",
           "ur5e", "fetch", "hopper", "walker2d",
@@ -85,9 +88,9 @@ def scene_env(name: str, n: int):
         return envs.create(name[:-len("_spring")], episode_length=1000, batch_size=n,
                            legacy_spring=True)
     if name in COMPOSER_SCENES:
-        from brax_torch.composer import envs as composer_envs
+        from brax_torch.tools import pbd_parity
 
-        return composer_envs.create_env(name, episode_length=1000, batch_size=n)
+        return pbd_parity.composer_scene(name, n, "cuda", episode_length=1000)
     return envs.create(name, episode_length=1000, batch_size=n)
 
 

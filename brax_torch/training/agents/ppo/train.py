@@ -17,6 +17,14 @@ CUDA, and the previous setting is restored on return.  Physics runs through
 the CUDA PBD kernel (v1) or generalized-step kernel (v2) on CUDA tensors
 whatever this flag says.
 
+Auxiliary-learner hooks (braxlines' discriminators ride them, as in the
+JAX trainer): `extra_params` (a dict of tensors) are trained once per
+training step, on the whole batch before the SGD epochs, by one Adam step
+(`extra_learning_rate`) on `extra_loss_fn(extra_params, transitions,
+generator)`; then `reward_relabel_fn(extra_params, transitions)` replaces
+the batch's rewards.  With no hook given the trainer draws and computes
+what it did without them.
+
 Each training step (ending in a device synchronise), its rollout and its
 SGD epochs, and each evaluation are `torch.profiler.record_function` ranges
 ("ppo/training_step", "ppo/rollout", "ppo/sgd", "ppo/eval"), which cost
@@ -67,10 +75,15 @@ def train(
     eval_env: Optional[Union[str, envs.EnvFactory]] = None,
     use_fused_kernel: Optional[bool] = None,
     device="cuda",
+    extra_params: Optional[types.Params] = None,
+    extra_loss_fn: Optional[Callable] = None,
+    extra_learning_rate: float = 3e-4,
+    reward_relabel_fn: Optional[Callable] = None,
 ):
     """PPO training; returns (make_policy, params, metrics).
 
-    params is (normalizer_params, policy_params), detached copies.  Besides
+    params is (normalizer_params, policy_params), detached copies, and with
+    `extra_loss_fn` also the trained `extra_params`.  Besides
     the JAX trainer's metrics, `training/sps_after_first` gives env steps/s
     over the last epoch's training steps after its first (host clock around
     synchronised steps), when the epoch has more than one.
@@ -124,6 +137,14 @@ def train(
         )
         update_fn = gradients.gradient_update_fn(loss_fn, optimizer, has_aux=True)
         normalizer_params = running_statistics.init_state((env.observation_size,), device=device)
+        extra_update_fn = None
+        if extra_loss_fn is not None:
+            extra_params = types.tree_map(
+                lambda x: x.detach().clone().to(device).requires_grad_(True), extra_params)
+            leaves = []
+            types.tree_map(leaves.append, extra_params)
+            extra_update_fn = gradients.gradient_update_fn(
+                extra_loss_fn, gradients.adam(leaves, extra_learning_rate))
 
         def training_step(env_state, normalizer_params, loss_metrics):
             policy = make_policy((normalizer_params, params.policy))
@@ -139,6 +160,11 @@ def train(
                 lambda x: torch.swapaxes(x, 1, 2).reshape((-1,) + (x.shape[1],) + x.shape[3:]),
                 types.tree_stack(unrolls))
             normalizer_params = running_statistics.update(normalizer_params, data.observation)
+            if extra_update_fn is not None:
+                extra_update_fn(extra_params, data, gen_train)
+            if reward_relabel_fn is not None:
+                with torch.no_grad():
+                    data = data._replace(reward=reward_relabel_fn(extra_params, data))
             with record_function("ppo/sgd"):
                 _sgd(data, normalizer_params, loss_metrics)
             return env_state, normalizer_params
@@ -200,4 +226,7 @@ def train(
             progress_fn(current_step, metrics)
 
         assert current_step >= num_timesteps
-        return make_policy, policy_params(), metrics
+        params_out = policy_params()
+        if extra_loss_fn is not None:
+            params_out += (types.tree_map(lambda x: x.detach().clone(), extra_params),)
+        return make_policy, params_out, metrics

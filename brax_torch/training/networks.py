@@ -17,7 +17,7 @@ auto-names), so its parameters are named `MLP_i.hidden_j.kernel`.
 from __future__ import annotations
 
 import math
-from typing import Callable, Mapping, Optional, Sequence
+from typing import Callable, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -126,6 +126,29 @@ def load_flax_params(mlp, params):
         if layer.bias is not None:
             layer.bias.copy_(torch.tensor(np.array(src["bias"], dtype=np.float32)))
     return mlp
+
+
+def flax_param_dict(params, device="cpu") -> Dict[str, Tensor]:
+    """flax MLP params {"params": {"hidden_i": {"kernel", "bias"}}} (or a Q
+    network's {"params": {"MLP_i": {"hidden_j": ...}}}), given as arrays,
+    as the port's name -> tensor mapping (`hidden_i.kernel`,
+    `MLP_i.hidden_j.bias`: the names of `named_parameters()`), copies on
+    `device`; the layouts are the same.  Anything else (a discriminator's
+    {"empty": 0}) maps leaf by leaf."""
+    tensor = lambda x: torch.tensor(np.array(x, dtype=np.float32), device=device)
+    if "params" not in params:
+        return {k: tensor(v) for k, v in params.items()}
+    out = {}
+
+    def walk(tree, prefix):
+        for name, sub in tree.items():
+            if isinstance(sub, Mapping):
+                walk(sub, f"{prefix}{name}.")
+            else:
+                out[f"{prefix}{name}"] = tensor(sub)
+
+    walk(params["params"], "")
+    return out
 
 
 class FeedForwardNetwork(nn.Module):

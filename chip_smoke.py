@@ -134,13 +134,26 @@
    brax_torch/tools/bench_composer.py (256 lanes) held against the twin at
    4096 envs from a reset, after 10 twin steps and with the ants
    overlapping (pbd_parity.composer_states), over one pass and the whole
-   step, each by the rule pbd_parity.RULES names; env.step of every
+   step, each by the rule pbd_parity.RULES names; octopus_run (the wide
+   route in legacy spring: PBD_WIDE with PBD_SPRING, 64 lanes) likewise
+   from a reset, after 10 twin steps and jiggled (pbd_parity.
+   octopus_states), over one substep and the whole step; env.step of every
    composer scene (ant_run, pro_ant_run, ant_push, ant_on_ball,
-   halfcheetah_run, humanoid_run, ant_chase, chase, follow, sumo and the
-   4-agent chase) at 4096 envs: 50 profiled steps with exactly one PBD
-   launch each, finite observations, a reward an agent, the device busy
-   share; the kernel timed per composer System as in step 5 beside its
-   bound, with its launch (registers, spills, shared memory, blocks per SM);
+   halfcheetah_run, humanoid_run, ant_chase, chase, follow, sumo, the
+   4-agent chase and octopus_run) at 4096 envs: 50 profiled steps with
+   exactly one PBD launch each, finite observations, a reward an agent,
+   the device busy share; the kernel timed per composer System as in step
+   5 beside its bound, with its launch (registers, spills, shared memory,
+   blocks per SM);
+9h. MAPPO (brax_torch/composer/training/mappo.py) on the 2-agent ant chase
+   and DIAYN (brax_torch/braxlines/train.py::train_vgcrl, PPO's
+   auxiliary-learner hooks) on v1 ant, each at the ant recipe's batch
+   settings for MAPPO_STEPS training steps and one eval of PPO_EVAL_ENVS
+   envs: exact launch counts of the PBD kernel (the wide route for the
+   chase) and of the fused MLP kernels (MAPPO a policy and a value chain
+   per agent; DIAYN PPO's and the discriminator's, whose loss and relabel
+   run once a training step), finite losses, every parameter moved (the
+   discriminator's too), the joint action the env's width, env-steps/s;
 10. holds the generalized-step kernel (brax_torch/csrc/gen_step.cu, built
    for the v2 ant) against its plain version at 4096 envs from a state 10
    plain env steps after reset, at one frame and at ant's five, with the
@@ -213,7 +226,8 @@
    every launch both issued by the host and replayed from a CUDA graph;
 17. prints one JSON line listing every kernel (pbd_step's and gen_step's
    with the backward route their Functions take; pbd_step_wide, the wide
-   route on the composer's multi-agent scenes; gen_step_chain, the chain
+   route on the composer's multi-agent scenes, MAPPO's chase and
+   octopus_run; gen_step_chain, the chain
    entry; the fused kernels' with SAC's shapes and launches) and, last,
    {"ok": true, "device": {...}}.
 
@@ -239,19 +253,24 @@ import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from brax_torch import cuda_build, envs
+from brax_torch.braxlines import discriminators as bl_discriminators
+from brax_torch.braxlines import obs_indices as bl_obs_indices
+from brax_torch.braxlines import train as bl_train
 from brax_torch.braxlines.defaults import DEFAULT_PPO_PARAMS
+from brax_torch.composer import envs as composer_envs
+from brax_torch.composer.training import mappo
 from brax_torch.sim import kernels
 from brax_torch.tools import bench_v2_generalized as bench_v2
 from brax_torch.tools import fused_turns, grad_parity
 from brax_torch.tools import probe_overhead as probe
-from brax_torch.tools.pbd_parity import (COMPOSER_SCENES, COMPOSER_WIDE, MAX_OUTLIERS,
+from brax_torch.tools.pbd_parity import (COMPOSER_SCENES, COMPOSER_WIDE, MAX_OUTLIERS, OCTOPUS,
                                          PERTURBED_COPIES, ROUNDING_NOISE, RULES, SPRING_SCENES,
                                          STATES, TOLERANCE, capcap_share, capcap_state,
                                          composer_env, composer_scene, composer_states,
                                          contact_share, corners_down, fetch_states,
                                          fingertips_on_ball, force_scene_states, grasp_states,
-                                         hold_capcap, max_errors, one_pass, spring_env,
-                                         spring_states, twister_swimmer)
+                                         hold_capcap, max_errors, octopus_states, one_pass,
+                                         spring_env, spring_states, twister_swimmer)
 from brax_torch.training import fused_mlp
 from brax_torch.training.agents.apg import networks as apg_networks
 from brax_torch.training.agents.apg import train as apg
@@ -437,12 +456,24 @@ SAC_SHAPES = [("q_humanoid", 256), ("q_halfcheetah", 256), ("sac_policy_humanoid
 # than RELU_KINK from 0, in bf16 backward on every row by the bounds of
 # check_relu_bf16_bwd; the bf16 backward whole with swish at the same shapes
 RELU_KINK = 1e-5
+# the chains MAPPO (the 2-agent chase: 164 observations, 8 actions an agent)
+# and DIAYN (v1 ant's 87 observations and z; its discriminator on the root's
+# x and y velocity) launch beside PPO's
+TRAINER_CHAINS = {"policy_chase": [164] + [32] * 4 + [16], "value_chase": [164] + [256] * 5 + [1],
+                  "policy_diayn": [89] + [32] * 4 + [16], "value_diayn": [89] + [256] * 5 + [1],
+                  "disc_diayn": [2, 32, 32, 2]}
 # the PBD kernel's batch sizes: PPO's eval, PPO's training batch, env.step's
 PBD_TIMING_ENVS = (PPO_EVAL_ENVS, 2048, N_ENVS)
 # the composer's Systems timed (ant_run's is v1 ant's; ant_chase's and follow's the
 # chase's, table for table)
 COMPOSER_TIMED = ("pro_ant_run", "ant_push", "ant_on_ball", "halfcheetah_run", "humanoid_run",
-                  "chase", "sumo", "chase4")
+                  "chase", "sumo", "chase4", OCTOPUS)
+# the wide scenes held against the twin (pbd_parity.RULES): the 2- and
+# 4-agent chase from composer_states, octopus_run from octopus_states
+COMPOSER_HELD = COMPOSER_WIDE + (OCTOPUS,)
+# MAPPO on the 2-agent ant chase and DIAYN on v1 ant, training steps each
+MAPPO_STEPS = 2
+DIAYN_STEPS = 2
 COMPOSER_STEPS = 50
 COMPOSER_WARM = 2
 # env.step calls timed by the host clock after the profiled ones
@@ -843,7 +874,7 @@ def v2_main_path(name, tag):
 def chain_inputs(name, rows, seed=0):
     """A chain's input, lecun-uniform weights, small biases and an output
     gradient of a mean loss (1 / rows scale), on the card."""
-    dims = CHAINS[name] if name in CHAINS else SAC_CHAINS[name]
+    dims = CHAINS[name] if name in CHAINS else {**SAC_CHAINS, **TRAINER_CHAINS}[name]
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     x = torch.randn((rows, dims[0]), generator=gen, device=DEVICE)
     ws = [(torch.rand((a, b), generator=gen, device=DEVICE) * 2 - 1) * (3.0 / a) ** 0.5
@@ -2346,20 +2377,25 @@ def composer_main_path(tag, scene):
 
 def composer_paths(tag, phase):
     """The composer phases: the wide route (PBD_WIDE) against the twin on the
-    2- and 4-agent chase at N_ENVS from pbd_parity.composer_states, over
-    one pass and the whole step, by pbd_parity.RULES; env.step of every
-    composer scene (composer_main_path); the kernel's timings, bound and
-    plain version per System (COMPOSER_TIMED) and each launch."""
+    2- and 4-agent chase at N_ENVS from pbd_parity.composer_states and on
+    octopus_run (with PBD_SPRING) from pbd_parity.octopus_states, over one
+    pass (octopus_run: one substep) and the whole step, by pbd_parity.RULES;
+    env.step of every composer scene (composer_main_path); the kernel's
+    timings, bound and plain version per System (COMPOSER_TIMED) and each
+    launch."""
     device = DEVICE
     phase("composer: wide pbd_step parity")
     gen = torch.Generator(device=device).manual_seed(7)
     w_checks = {}
-    for name in COMPOSER_WIDE:
+    for name in COMPOSER_HELD:
         env_ = composer_env(name, N_ENVS, device)
         checks_w = {}
-        for state, (qp, act) in composer_states(name, env_, N_ENVS, 0, device).items():
+        held = (octopus_states(env_, N_ENVS, 0, device) if name == OCTOPUS
+                else composer_states(name, env_, N_ENVS, 0, device))
+        for state, (qp, act) in held.items():
             share = contact_share(env_.sys, qp, act)
-            overlap = capcap_share(env_.sys, qp)
+            # octopus_run has no capsule-capsule pairs
+            overlap = 0.0 if name == OCTOPUS else capcap_share(env_.sys, qp)
             rule = RULES[name][state]
             print(f"parity state: composer {name}, {N_ENVS} envs, {state}, action "
                   f"{tuple(act.shape)}, {share:.3f} in contact, {overlap:.3f} with ants "
@@ -2394,6 +2430,173 @@ def composer_paths(tag, phase):
               f"{r['plain_ms']:.3f} ms/step")
         scenes[scene] = r
     return {"checks": w_checks, "main": mains, "scene": scenes}
+
+
+def mappo_chase(batch_size, device):
+    """The bare 2-agent ant chase: the factory MAPPO trains on."""
+    return composer_envs.create_ma_env(task="chase", episode_length=None, batch_size=batch_size,
+                                       auto_reset=False, device=device).unwrapped
+
+
+def diayn_disc():
+    """DIAYN's skill discriminator on v1 ant: q(z | the root's x and y
+    velocity) an MLP, a categorical prior over 2 skills
+    (braxlines.obs_indices' "vel" indices of ant)."""
+    idx, scale = bl_obs_indices.get_indices("ant")
+    return bl_discriminators.SkillDiscriminator(obs_indices=idx, obs_scale=scale, z_size=2,
+                                                q_fn="mlp", dist_q="categorical",
+                                                dist_p="categorical", device=DEVICE)
+
+
+def trainer_launches(p, steps, agents=1, extra_fwd=0, extra_bwd=0):
+    """(fwd, bwd, pbd_step) launches of `steps` training steps and one
+    evaluation of PPO's recipe `p` (expected_launches) with a policy and a
+    value chain per agent, and `extra_fwd` / `extra_bwd` more per training
+    step (DIAYN's discriminator: its loss's forward and backward, the
+    relabel's forward)."""
+    fwd, bwd, pbd = expected_launches(p, steps)
+    return (agents * fwd + steps * extra_fwd, agents * bwd + steps * extra_bwd, pbd)
+
+
+def counted(run):
+    """run() with every count set to 0 just before; (its result, the
+    launches of the three kernels, seconds)."""
+    kernels.pbd_step_launch.launches = 0
+    fused_mlp.chain_fwd.launches = fused_mlp.chain_bwd.launches = 0
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, {"fused_mlp_fwd": fused_mlp.chain_fwd.launches,
+                 "fused_mlp_bwd": fused_mlp.chain_bwd.launches,
+                 "pbd_step": kernels.pbd_step_launch.launches}, seconds
+
+
+def moved_from(initial, now, label):
+    """The smallest max change of a parameter from `initial` to `now` (name
+    -> tensor); raises where one did not change."""
+    moved = {k: float((now[k].detach() - v).abs().max()) for k, v in initial.items()}
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"{label}: parameters that did not change: "
+                             f"{[k for k, v in moved.items() if not v > 0]}")
+    return min(moved.values())
+
+
+def trainer_paths(tag, phase, checks):
+    """MAPPO on the 2-agent ant chase and DIAYN on v1 ant at the ant recipe's
+    batch settings: MAPPO_STEPS / DIAYN_STEPS training steps and one eval of
+    PPO_EVAL_ENVS envs each, with exact launch counts; their new fused
+    chain shapes (the chase's 164-wide observation, ant's 89 with z, the
+    discriminator's 2 -> 32 -> 32 -> 2 over the whole batch) held against
+    the plain versions in bf16 first (into `checks`)."""
+    p = recipe("ant")
+    n_rows = p["batch_size"] * p["unroll_length"]
+    batch_rows = p["batch_size"] * p["num_minibatches"] * p["unroll_length"]
+    phase("MAPPO, DIAYN: fused_mlp parity at their shapes")
+    shapes = [("policy_chase", p["num_envs"]), ("policy_chase", n_rows),
+              ("value_chase", n_rows), ("value_chase", p["batch_size"]),
+              ("policy_diayn", p["num_envs"]), ("policy_diayn", n_rows),
+              ("value_diayn", n_rows), ("disc_diayn", batch_rows)]
+    for name, rows in shapes:
+        checks[name, rows, "bf16"] = c = check_chain(name, rows, True)
+        print(f"parity fused_mlp {name}@{rows} bf16: " + ", ".join(
+            f"{kind} max|kernel - plain| {r['max_abs_err']:.3e} ({r['fraction_of_tolerance']:.3f} "
+            f"of the tolerance)" for kind, r in c.items()))
+    disc_times = time_chain("disc_diayn", batch_rows, True)
+    print(f"timing {tag}: fused_mlp disc_diayn@{batch_rows} bf16: fwd {disc_times['fwd']:.4f} ms, "
+          f"bwd {disc_times['bwd']:.4f} ms graph-replayed; cuBLAS chain fwd "
+          f"{disc_times['cublas_fwd']:.4f}, bwd {disc_times['cublas_bwd']:.4f}")
+
+    phase("main path: MAPPO on the 2-agent ant chase")
+    q = dict(p, num_timesteps=MAPPO_STEPS * env_steps_per_training_step(p), num_evals=1)
+    want = dict(zip(("fused_mlp_fwd", "fused_mlp_bwd", "pbd_step"),
+                    trainer_launches(q, MAPPO_STEPS, agents=2)))
+    rollout, sgd, _ = launch_plan(q)
+    # per agent a policy chain per env step, and a policy, a value and a
+    # bootstrap-value chain forward and a policy and a value chain backward
+    # per minibatch
+    per_step = {"pbd_step": rollout * q["action_repeat"], "fused_mlp_fwd": 2 * (rollout + 3 * sgd),
+                "fused_mlp_bwd": 2 * 2 * sgd}
+    if per_step != {"pbd_step": 80, "fused_mlp_fwd": 928, "fused_mlp_bwd": 512}:
+        raise AssertionError(f"MAPPO's launches per training step {per_step}")
+    initial = []
+    real_init = mappo._agent_params
+
+    def recording(*args):
+        params = real_init(*args)
+        initial.append({f"{side}.{k}": v.detach().clone() for side, named in
+                        (("policy", params.policy), ("value", params.value))
+                        for k, v in named.items()})
+        return params
+
+    mappo._agent_params = recording
+    try:
+        (make_policy, params, m_metrics), m_launches, m_s = counted(lambda: mappo.train(
+            mappo_chase, num_eval_envs=PPO_EVAL_ENVS, seed=0, device=DEVICE, **q))
+    finally:
+        mappo._agent_params = real_init
+    if m_launches != want:
+        raise AssertionError(f"MAPPO launches {m_launches}, expected {want}")
+    for key in ("training/total_loss", "training/agent0/policy_loss", "training/agent1/v_loss",
+                "eval/episode_reward"):
+        if not np.isfinite(m_metrics[key]):
+            raise AssertionError(f"MAPPO {key} = {m_metrics[key]}")
+    normalizer, agent_params = params
+    m_moved = min(moved_from(init, {f"{side}.{k}": v for side in ("policy", "value")
+                                    for k, v in getattr(agent_params[agent], side).items()},
+                             f"MAPPO {agent}")
+                  for init, agent in zip(initial, sorted(agent_params)))
+    env_m = mappo_chase(8, DEVICE)
+    with torch.no_grad():
+        act, _ = make_policy(params, deterministic=True)(
+            torch.zeros((8, env_m.observation_size), device=DEVICE), None)
+    if tuple(act.shape) != (8, env_m.action_size) or env_m.action_size != 16:
+        raise AssertionError(f"MAPPO's joint action {tuple(act.shape)}")
+    print(f"main path MAPPO 2-agent ant chase: {MAPPO_STEPS} training steps at the ant recipe "
+          f"(num_envs {q['num_envs']}, batch {q['batch_size']} x {q['num_minibatches']} "
+          f"minibatches, unroll {q['unroll_length']}, {q['num_updates_per_batch']} updates) + "
+          f"one eval of {PPO_EVAL_ENVS} envs in {m_s:.1f} s; launches {m_launches} (as "
+          f"expected; per training step {per_step}); total_loss "
+          f"{m_metrics['training/total_loss']:.5g}, eval/episode_reward "
+          f"{m_metrics['eval/episode_reward']:.5g}; every parameter of both agents moved "
+          f"(smallest max change {m_moved:.3e}); joint action {tuple(act.shape)}")
+    print(f"timing {tag}: MAPPO 2-agent chase training env-steps/s over step 2 (host clock, "
+          f"fused_mlp on): {m_metrics['training/sps_after_first']:.1f}")
+
+    phase("main path: DIAYN on v1 ant")
+    disc = diayn_disc()
+    d_initial = {k: v.detach().clone()
+                 for k, v in disc.init(bl_train._disc_generator(0, DEVICE)).items()}
+    want_d = dict(zip(("fused_mlp_fwd", "fused_mlp_bwd", "pbd_step"),
+                      trainer_launches(q, DIAYN_STEPS, extra_fwd=2, extra_bwd=1)))
+    per_step_d = {"pbd_step": rollout * q["action_repeat"], "fused_mlp_fwd": rollout + 3 * sgd + 2,
+                  "fused_mlp_bwd": 2 * sgd + 1}
+    if per_step_d != {"pbd_step": 80, "fused_mlp_fwd": 466, "fused_mlp_bwd": 257}:
+        raise AssertionError(f"DIAYN's launches per training step {per_step_d}")
+    recorder = InitRecorder()
+    (_, d_params, d_metrics), d_launches, d_s = counted(lambda: bl_train.train_vgcrl(
+        "ant", disc, seed=0, device=DEVICE, num_eval_envs=PPO_EVAL_ENVS, use_fused_kernel=True,
+        network_factory=recorder.factory, **q))
+    d_moved = check_ppo_run("DIAYN", d_metrics, recorder, d_params[1], d_launches, want_d)
+    disc_moved = moved_from(d_initial, d_params[2], "DIAYN discriminator")
+    widths = (recorder.initial["policy"]["hidden_0.kernel"].shape[0],
+              recorder.initial["policy"]["hidden_4.kernel"].shape[1])
+    if widths != (89, 16):
+        raise AssertionError(f"the DIAYN policy maps {widths[0]} inputs to {widths[1]}")
+    print(f"main path DIAYN v1 ant: {DIAYN_STEPS} training steps at the ant recipe + one eval of "
+          f"{PPO_EVAL_ENVS} envs in {d_s:.1f} s; launches {d_launches} (as expected; per "
+          f"training step {per_step_d}: PPO's 80 / 464 / 256, the discriminator's loss forward "
+          f"and backward and its relabel forward); total_loss "
+          f"{d_metrics['training/total_loss']:.5g}, eval/episode_reward "
+          f"{d_metrics['eval/episode_reward']:.5g}; every parameter moved (policy and value "
+          f"{d_moved:.3e}, discriminator {disc_moved:.3e})")
+    print(f"timing {tag}: DIAYN ant training env-steps/s over step 2 (host clock, fused_mlp on): "
+          f"{d_metrics['training/sps_after_first']:.1f}")
+    return {"mappo": {"launches": m_launches, "per_step": per_step, "seconds": m_s,
+                      "metrics": m_metrics},
+            "diayn": {"launches": d_launches, "per_step": per_step_d, "seconds": d_s,
+                      "metrics": d_metrics},
+            "disc_times": disc_times}
 
 
 def chain_paths(tag, phase, gen_sys, gen_env):
@@ -2492,10 +2695,11 @@ def chain_paths(tag, phase, gen_sys, gen_env):
             "ops": b[2], "bytes": b[3], "turns": turns, "schema": [k for k, _ in schema]}
 
 
-def wide_entry(co, name_limit):
+def wide_entry(co, tr, name_limit):
     """The kernels line's record of the PBD kernel's wide route (PBD_WIDE):
-    its launches on the wide scenes' main paths, its parity checks, and
-    its timings per wide System (the 2-agent chase's at the top level)."""
+    its launches on the wide scenes' main paths and MAPPO's, its parity
+    checks, and its timings per wide System (the 2-agent chase's at the top
+    level; octopus_run's, PBD_WIDE with PBD_SPRING, under by_scene)."""
     main = {s: r for s, r in co["main"].items() if r["wide"]}
     chase = co["scene"]["chase"]
     errs = [e for checks in co["checks"].values() for ck in checks.values()
@@ -2510,12 +2714,14 @@ def wide_entry(co, name_limit):
                              "a warp",
         "design": "PBD_WIDE: one env a block of 64-256 threads, its lanes exchanging through "
                   "shared memory (a barrier, a write, a barrier, a read)",
-        "launches": sum(r["launches"] for r in main.values()),
-        "launches_by_path": {f"composer {s} env.step": r["launches"] for s, r in main.items()},
+        "launches": sum(r["launches"] for r in main.values())
+        + tr["mappo"]["launches"]["pbd_step"],
+        "launches_by_path": {**{f"composer {s} env.step": r["launches"] for s, r in main.items()},
+                             "MAPPO 2-agent chase": tr["mappo"]["launches"]["pbd_step"]},
         "max_abs_err": max(errs),
         "max_abs_err_scope": "every env of every check held by max_errors (rounding-decided "
                              "outliers included); the chaotic checks (chaos_rule) under checks",
-        "rules": {name: RULES[name] for name in COMPOSER_WIDE},
+        "rules": {name: RULES[name] for name in COMPOSER_HELD},
         "tolerance": TOLERANCE,
         "checks": co["checks"],
         "ms": chase["ms_by_envs"][N_ENVS]["graph"],
@@ -2524,14 +2730,14 @@ def wide_entry(co, name_limit):
         "bound_ms": chase["bound"]["bound_ms"],
         "bound_by": chase["bound"]["bound_by"],
         "library_ms": None,
-        "shape": f"the 2-agent chase at {N_ENVS} envs (64 lanes an env); by_scene: sumo and "
-                 f"the 4-agent chase",
+        "shape": f"the 2-agent chase at {N_ENVS} envs (64 lanes an env); by_scene: sumo, "
+                 f"the 4-agent chase and octopus_run (legacy spring)",
         "by_scene": {s: {"ms": co["scene"][s]["ms_by_envs"][N_ENVS]["graph"],
                          "ms_host_issued": co["scene"][s]["ms_by_envs"][N_ENVS]["host"],
                          "ms_by_envs": co["scene"][s]["ms_by_envs"],
                          "plain_ms": co["scene"][s]["plain_ms"], **co["scene"][s]["bound"],
                          "launch": co["scene"][s]["launch"]}
-                     for s in ("chase", "sumo", "chase4")},
+                     for s in ("chase", "sumo", "chase4", OCTOPUS)},
         "card": name_limit,
     }
 
@@ -2579,7 +2785,7 @@ def main():
                              kernels.kernel_source(twister_swimmer(device)),
                              *(kernels.kernel_source(s_) for s_ in comp_sys.values()),
                              *(kernels.kernel_source(one_pass(comp_sys[name]))
-                               for name in ("chase", "chase4")),
+                               for name in COMPOSER_HELD),
                              *(gen_kernels.kernel_source(s) for s in scenes))
     print(f"build: {', '.join(p.name for p in built.values())} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a, in parallel)")
@@ -2761,6 +2967,7 @@ def main():
     sp_ = spring_paths(tag, phase, s_envs)
     s_scene, s_main, s_launches = sp_["scene"], sp_["main"], sp_["launches"]
     co = composer_paths(tag, phase)
+    tr = trainer_paths(tag, phase, checks)
 
     def fused_entry(kind, replaces, function):
         main = ("value", 5120, "bf16")
@@ -2779,6 +2986,9 @@ def main():
                                  "PPO grasp": g_launches[f"fused_mlp_{kind}"],
                                  "PPO fetch": b_launches[f"fused_mlp_{kind}"],
                                  "PPO spring ant": s_launches[f"fused_mlp_{kind}"],
+                                 "MAPPO 2-agent chase": tr["mappo"]["launches"][
+                                     f"fused_mlp_{kind}"],
+                                 "DIAYN v1 ant": tr["diayn"]["launches"][f"fused_mlp_{kind}"],
                                  **{f"APG {label} {k}": r["launches"][f"fused_mlp_{kind}"]
                                     for label in ("v1 ant", "v2 ant")
                                     for k, r in apg_run[label].items()},
@@ -3097,6 +3307,11 @@ def main():
                   "total_loss": fe["ppo"]["training/total_loss"], "launches": b_launches,
                   "launches_per_training_step": fe["per_step"], "seconds": fe["seconds"],
                   "fused_ms_per_training_step": fe["fused_ms"]},
+        **{label: {"env_steps_per_s_fused_on": r["metrics"]["training/sps_after_first"],
+                   "eval_episode_reward": r["metrics"]["eval/episode_reward"],
+                   "total_loss": r["metrics"]["training/total_loss"], "launches": r["launches"],
+                   "launches_per_training_step": r["per_step"], "seconds": r["seconds"]}
+           for label, r in (("mappo_chase", tr["mappo"]), ("diayn_ant", tr["diayn"]))},
         "spring_ant": {"env_steps_per_s_fused_on": sp_["ppo"]["training/sps_after_first"],
                        "eval_episode_reward": sp_["ppo"]["eval/episode_reward"],
                        "total_loss": sp_["ppo"]["training/total_loss"], "launches": s_launches,
@@ -3181,6 +3396,8 @@ def main():
                              "PPO spring ant": s_launches["pbd_step"],
                              **{f"composer {scene} env.step": r["launches"]
                                 for scene, r in co["main"].items()},
+                             "MAPPO 2-agent chase (wide)": tr["mappo"]["launches"]["pbd_step"],
+                             "DIAYN v1 ant": tr["diayn"]["launches"]["pbd_step"],
                              **{f"APG v1 ant {kind}": r["launches"]["pbd_step"]
                                 for kind, r in apg_run["v1 ant"].items()},
                              **{f"SAC {label}": r["launches"]["physics"]
@@ -3246,7 +3463,7 @@ def main():
         },
         "card": name_limit,
     },
-        wide_entry(co, name_limit),
+        wide_entry(co, tr, name_limit),
         fused_entry("fwd", "brax_tpu/training/fused_mlp.py:204",
                     "brax_tpu/training/fused_mlp.py::_fwd_kernel"),
         fused_entry("bwd", "brax_tpu/training/fused_mlp.py:247",

@@ -1,7 +1,7 @@
 """Profiles one PPO training step of a v1 env at its published recipe, on
 the card.
 
-    python scripts/profile_ppo_step.py reacher    # or grasp, fetch
+    python scripts/profile_ppo_step.py reacher    # or grasp, fetch, mappo, diayn
 
 Runs chip_smoke.py's `profile_training_step` (two training steps at
 DEFAULT_PPO_PARAMS[name], the fused MLP kernels on, the episode cut to
@@ -13,6 +13,9 @@ chip_smoke.py profiles ant's training step itself; reacher's step makes
 whose trace the profiler takes minutes to process, so it runs here, apart
 from chip_smoke.py's time limit, as do grasp's (80 PBD launches, 64
 minibatch steps) and fetch's (80 PBD launches, 128 minibatch steps).
+`mappo` profiles MAPPO's training step on the 2-agent ant chase and
+`diayn` DIAYN's on v1 ant (braxlines' train_vgcrl), each at the ant recipe
+(chip_smoke.py's trainer_paths drives both unprofiled).
 """
 
 import os
@@ -31,5 +34,16 @@ if __name__ == "__main__":
     name = sys.argv[1]
     card = cuda_build.card()
     print(card)
-    prof = chip_smoke.profile_training_step(True, environment=name, preset=name)
+    p = dict(chip_smoke.recipe("ant"), num_evals=1, episode_length=chip_smoke.PROFILE_EPISODE)
+    p["num_timesteps"] = 2 * chip_smoke.env_steps_per_training_step(p)
+    kw = dict(num_eval_envs=chip_smoke.PPO_EVAL_ENVS, seed=0, device=chip_smoke.DEVICE, **p)
+    if name == "mappo":
+        prof = chip_smoke.profile_training_step(
+            True, run=lambda: chip_smoke.mappo.train(chip_smoke.mappo_chase, **kw),
+            prefix="mappo")
+    elif name == "diayn":
+        prof = chip_smoke.profile_training_step(True, run=lambda: chip_smoke.bl_train.train_vgcrl(
+            "ant", chip_smoke.diayn_disc(), use_fused_kernel=True, **kw))
+    else:
+        prof = chip_smoke.profile_training_step(True, environment=name, preset=name)
     chip_smoke.print_profile(f"[{card}]", f"{name} ", "on", prof)

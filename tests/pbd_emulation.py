@@ -3,10 +3,14 @@
 `brax_torch/csrc/pbd_step.cu`, with a System's scene header in front
 (`brax_torch.sim.kernels.scene_header`), is compiled by the host C++
 compiler against a few lines that stand in for CUDA: a block is
-PBD_THREADS OS threads (one warp, or an env of 64-256 lanes on the wide
-route), `__shfl_sync` a store, a barrier, a load and a barrier,
-`__syncthreads` a barrier, and a `__shared__` array a global one (the
-blocks run one after another).  With PBD_IEEE_DIV_SQRT defined the kernel divides and takes
+PBD_THREADS lanes (one warp, or an env of 64-256 lanes on the wide route),
+each a fiber with a stack of its own on one OS thread, `__syncthreads` a
+barrier (the lane hands control back to a scheduler that runs the others up
+to it; a barrier that some lane never reaches aborts the program, where a
+block on the card would hang), `__shfl_sync` a store, a barrier, a load and
+a barrier, and a `__shared__` array a global one (the blocks run one after
+another).  Fibers switch in a few instructions, where OS threads at a
+barrier wait on the kernel's scheduler.  With PBD_IEEE_DIV_SQRT defined the kernel divides and takes
 square roots with the host's IEEE `/` and sqrtf, so what this checks is the
 lane design (the plan, the header's lists, the shuffles, the roles of the
 lanes), not the card's arithmetic; tests/test_torch_cuda.py and
@@ -39,11 +43,9 @@ from brax_torch.sim import kernels
 
 SHIM = r"""
 #include <math.h>
-#include <barrier>
 #include <cstddef>
 #include <cstdio>
 #include <cstdlib>
-#include <thread>
 #include <vector>
 using std::size_t;
 #define __global__
@@ -52,24 +54,107 @@ using std::size_t;
 #define __launch_bounds__(...)
 #define PBD_IEEE_DIV_SQRT
 struct Dim { unsigned x; };
-thread_local Dim threadIdx, blockIdx;
+// the running lane's indices: the scheduler sets them as it enters a lane
+Dim threadIdx, blockIdx;
 typedef void* cudaStream_t;
 template <class T> inline T __ldg(const T* p) { return *p; }
-struct Block { std::barrier<>* bar; float slots[256]; };
-thread_local Block* g_block;
+
+// Each lane of a block is a fiber on this one OS thread, with a stack of
+// its own; a barrier hands control back to the scheduler, which runs the
+// next lane.  fiber_switch saves the callee-saved registers and the stack
+// pointer of the running side and restores the other's (x86-64 System V).
+extern "C" void fiber_switch(void** save_sp, void* load_sp);
+asm(R"(
+.text
+.globl fiber_switch
+.type fiber_switch,@function
+fiber_switch:
+  pushq %rbp
+  pushq %rbx
+  pushq %r12
+  pushq %r13
+  pushq %r14
+  pushq %r15
+  movq %rsp, (%rdi)
+  movq %rsi, %rsp
+  popq %r15
+  popq %r14
+  popq %r13
+  popq %r12
+  popq %rbx
+  popq %rbp
+  ret
+)");
+
+enum LaneState { RUNNING, AT_BARRIER, DONE };
+struct Lane { void* sp; LaneState state; };
+struct Block {
+  std::vector<Lane> lanes;
+  void* sched_sp;
+  int current;
+  float slots[256];
+};
+Block* g_block;
+
+inline void __syncthreads() {
+  Lane& me = g_block->lanes[g_block->current];
+  me.state = AT_BARRIER;
+  fiber_switch(&me.sp, g_block->sched_sp);
+}
 inline float __shfl_sync(unsigned, float v, int src, int width) {
   g_block->slots[threadIdx.x] = v;
-  g_block->bar->arrive_and_wait();
+  __syncthreads();
   float r = g_block->slots[(threadIdx.x & ~(width - 1)) + src];
-  g_block->bar->arrive_and_wait();
+  __syncthreads();
   return r;
 }
-inline void __syncthreads() { g_block->bar->arrive_and_wait(); }
 // one block runs at a time: a __shared__ array is a global one
 #define __shared__
 """
 
 MAIN = r"""
+static void (*g_body)();
+static void lane_entry() {
+  g_body();
+  Lane& me = g_block->lanes[g_block->current];
+  me.state = DONE;
+  fiber_switch(&me.sp, g_block->sched_sp);
+  abort();  // a finished lane is never entered again
+}
+
+// Runs body() on `count` lanes as one block: round after round, each lane
+// runs until it reaches a barrier or ends.  A round in which some lanes
+// reached a barrier and others ended is a barrier that not every thread
+// reaches, which hangs a block on the card: it aborts here.
+static void run_block(Block& w, int count, std::vector<std::vector<char>>& stacks) {
+  w.lanes.assign(count, Lane{nullptr, RUNNING});
+  for (int l = 0; l < count; ++l) {
+    char* top = stacks[l].data() + stacks[l].size();
+    void** sp = (void**)((size_t)top & ~(size_t)15);
+    *--sp = nullptr;              // lane_entry's return address slot (alignment)
+    *--sp = (void*)&lane_entry;   // fiber_switch's ret
+    for (int r = 0; r < 6; ++r) *--sp = nullptr;  // rbp rbx r12-r15
+    w.lanes[l].sp = sp;
+  }
+  g_block = &w;
+  for (;;) {
+    int at_barrier = 0, done = 0;
+    for (int l = 0; l < count; ++l) {
+      w.current = l;
+      threadIdx.x = l;
+      fiber_switch(&w.sched_sp, w.lanes[l].sp);
+      if (w.lanes[l].state == AT_BARRIER) ++at_barrier;
+      else ++done;
+    }
+    if (done == count) return;
+    if (at_barrier != count) {
+      fprintf(stderr, "a barrier that %d of %d lanes never reach\n", done, count);
+      abort();
+    }
+    for (auto& lane : w.lanes) lane.state = RUNNING;
+  }
+}
+
 int main(int argc, char** argv) {
   const int n = atoi(argv[1]), n_act = atoi(argv[2]), nb = PBD_NB;
   const int widths[11] = {3, 4, 3, 3, -1, 3, 4, 3, 3, 3, 3};
@@ -82,20 +167,21 @@ int main(int argc, char** argv) {
   // 16 NaNs past each input: a planted fault that reads past the action
   // (reference_clip) reads them, as a kernel on the card reads what lies there
   for (int q = 0; q < 5; ++q) t[q].resize(t[q].size() + 16, NAN);
+  std::vector<std::vector<char>> stacks(PBD_THREADS, std::vector<char>(1 << 20));
+  static std::vector<std::vector<float>>* g_t = &t;
+  static int g_n, g_n_act;
+  g_n = n;
+  g_n_act = n_act;
+  g_body = [] {
+    auto& t = *g_t;
+    pbd_step_kernel(t[0].data(), t[1].data(), t[2].data(), t[3].data(), t[4].data(),
+                    t[5].data(), t[6].data(), t[7].data(), t[8].data(), t[9].data(),
+                    t[10].data(), g_n, g_n_act);
+  };
+  Block w;
   for (int b = 0; b < (n + PBD_ENVS_PER_BLOCK - 1) / PBD_ENVS_PER_BLOCK; ++b) {
-    std::barrier<> bar(PBD_THREADS);
-    Block w{&bar, {}};
-    std::vector<std::thread> lanes;
-    for (int l = 0; l < PBD_THREADS; ++l)
-      lanes.emplace_back([&, l] {
-        blockIdx.x = b;
-        threadIdx.x = l;
-        g_block = &w;
-        pbd_step_kernel(t[0].data(), t[1].data(), t[2].data(), t[3].data(), t[4].data(),
-                        t[5].data(), t[6].data(), t[7].data(), t[8].data(), t[9].data(),
-                        t[10].data(), n, n_act);
-      });
-    for (auto& l : lanes) l.join();
+    blockIdx.x = b;
+    run_block(w, PBD_THREADS, stacks);
   }
   f = fopen(argv[4], "wb");
   for (int q = 5; q < 11; ++q) fwrite(t[q].data(), 4, t[q].size(), f);
@@ -122,7 +208,7 @@ def executable(text: str) -> Path:
         with tempfile.TemporaryDirectory(dir=exe.parent) as tmp:
             src, out = Path(tmp) / "pbd_step_emulated.cpp", Path(tmp) / exe.name
             src.write_text(text)
-            subprocess.run([compiler(), "-O1", "-std=c++20", "-pthread", "-o", str(out),
+            subprocess.run([compiler(), "-O1", "-std=c++20", "-o", str(out),
                             str(src)], check=True, capture_output=True)
             out.replace(exe)
     return exe

@@ -80,7 +80,8 @@ halfcheetah (from its feet together, `pbd_parity.capcap_state`, where both
 of a foot's groups act) and inverted_pendulum, named "<env>_spring", from
 `pbd_parity.spring_states`.  The wide faults are planted in the
 composer's 2- and 4-agent chase ("chase", "chase4": `pbd_parity.
-COMPOSER_WIDE`), from `pbd_parity.composer_states`.
+COMPOSER_WIDE`), from `pbd_parity.composer_states`, and in octopus_run
+(the wide route in legacy spring), from `pbd_parity.octopus_states`.
 
 On the card,
 
@@ -90,7 +91,7 @@ holds this package's kernel and each planted one against the twin at
 4096 envs of each scene (default: v1 halfcheetah, pusher,
 inverted_pendulum, inverted_double_pendulum, swimmer, reacherangle, grasp,
 fetch, the made scenes grasp_padded, pusher_oneway and swimmer_twister,
-the spring Systems and the composer's chase and 4-agent chase),
+the spring Systems, the composer's chase and 4-agent chase and octopus_run),
 from the states `chip_smoke.py` holds them in (a reset, 10 twin steps
 after it and, for the capsule-capsule scenes, the pairs overlapping;
 grasp's reset and its claw closed on the ball; fetch's reset and its feet
@@ -193,8 +194,8 @@ FAULT_SCENES = {"b_sign": ("halfcheetah", "pusher"), "no_b_gather": ("halfcheeta
                 "universal_torque_sign": ("humanoid_legacy_spring",),
                 "spring_count_all_groups": ("halfcheetah_spring",),
                 "spring_forces_twice": ("inverted_pendulum_spring",),
-                "wide_warp_local": ("chase", "chase4"), "wide_v3_swapped": ("chase", "chase4"),
-                "wide_float_own_lane": ("chase", "chase4")}
+                **{f: ("chase", "chase4", pp.OCTOPUS)
+                   for f in ("wide_warp_local", "wide_v3_swapped", "wide_float_own_lane")}}
 CAPCAP_SCENES = ("halfcheetah", "pusher")
 FORCE_SCENES = ("inverted_pendulum", "inverted_double_pendulum", "swimmer", "reacherangle")
 GRASP_SCENES = ("grasp", "grasp_padded")
@@ -206,8 +207,9 @@ MADE_SCENES = {"grasp_padded": ("grasp", pp.padded_grasp),
 # the legacy-spring Systems the spring faults are planted in
 SPRING_FAULT_SCENES = ("ant_spring", "humanoid_legacy_spring", "halfcheetah_spring",
                        "inverted_pendulum_spring")
-# the composer's wide scenes (pbd_parity.COMPOSER_WIDE)
-WIDE_SCENES = tuple(pp.COMPOSER_WIDE)
+# the composer's wide scenes (pbd_parity.COMPOSER_WIDE, and octopus_run:
+# the wide route in legacy spring)
+WIDE_SCENES = tuple(pp.COMPOSER_WIDE) + (pp.OCTOPUS,)
 SCENES = (CAPCAP_SCENES + FORCE_SCENES + ("grasp", "fetch") + tuple(MADE_SCENES)
           + SPRING_FAULT_SCENES + WIDE_SCENES)
 N = 4096
@@ -289,6 +291,8 @@ def states(name, env, device, sys_=None):
     (default: env.sys)."""
     if name.endswith("_spring"):
         return spring_states(name, env, N, device, sys_)
+    if name == pp.OCTOPUS:
+        return pp.octopus_states(env, N, 0, device)
     if name in WIDE_SCENES:
         return pp.composer_states(name, env, N, 0, device)
     base = MADE_SCENES[name][0] if name in MADE_SCENES else name

@@ -2,9 +2,8 @@
 every registered scene built leaf for leaf, the resets, and mirrors of
 tests/test_composer.py's tests.
 
-Each scene of the JAX composer registry but octopus_run (its octopus
-component waits for legacy spring's 28 bodies and 50 contact points:
-ROADMAP.md, queue A item 11), and the 4-agent chase, builds the same
+Each scene of the JAX composer registry (octopus_run, a legacy-spring
+scene, in tests/test_torch_octopus.py), and the 4-agent chase, builds the same
 System table for table, with the same observation and action widths,
 agent groups and component indices; the resets (which draw nothing) give
 the JAX reset's qp, obs, reward, done and metrics at

@@ -112,9 +112,12 @@ def test_wrappers_with_per_agent_reward():
 
 
 def test_octopus_waits_for_its_slice():
-    """The octopus component (and so octopus_run) raises NotImplementedError
-    citing ROADMAP.md's queue A item 11; every other task builds."""
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
-        composer.components.load_component("octopus")
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
-        cenvs.create_env("octopus_run", batch_size=1, device="cpu")
+    """The octopus component's slice has landed: the component loads (root
+    `octopus`, 27 bodies) and octopus_run builds a legacy-spring env of 63
+    observations and 26 actions (tests/test_torch_octopus*.py hold it to
+    the JAX package)."""
+    spec = composer.components.load_component("octopus")
+    assert spec.root == "octopus" and len(spec.config.bodies) == 27
+    env = cenvs.create_env("octopus_run", batch_size=1, device="cpu")
+    assert env.unwrapped.sys.dynamics_mode == "legacy_spring"
+    assert (env.observation_size, env.action_size) == (63, 26)

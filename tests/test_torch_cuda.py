@@ -10,6 +10,7 @@ where only PyTorch is installed:
 """
 
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -1575,6 +1576,105 @@ def test_composer_env_step_launches_the_kernel_once(cuda):
         agents = len(env.unwrapped.agent_names)
         assert state.reward.shape == ((64, agents) if agents else (64,)), task
         assert bool(torch.isfinite(state.obs).all()), task
+
+
+@pytest.fixture(scope="module")
+def octopus_states():
+    """(env, {state: (qp, act)}) of octopus_run at 4096 envs
+    (pbd_parity.octopus_states, seed 0), its kernel and one-substep
+    kernel built together."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel runs only there")
+    from brax_torch.tools import pbd_parity as pp
+
+    env = pp.composer_env(pp.OCTOPUS, 4096, "cuda")
+    cuda_build.build(kernels.kernel_source(env.sys), kernels.kernel_source(pp.one_pass(env.sys)))
+    return env, pp.octopus_states(env, 4096, 0, "cuda")
+
+
+def test_octopus_kernel_matches_twin_by_its_rules(cuda, octopus_states):
+    """octopus_run (PBD_WIDE with PBD_SPRING, 64 lanes) against the twin at
+    4096 envs from a reset, 10 twin steps after it and jiggled, over one
+    substep and the whole step, each by pbd_parity.RULES["octopus_run"]."""
+    from brax_torch.tools import pbd_parity as pp
+
+    env, states = octopus_states
+    p = kernels.plan(env.sys)
+    assert p.wide and p.spring and p.lanes == 64 and p.envs_per_block == 1
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for state, (qp, act) in states.items():
+        before = kernels.pbd_step_launch.launches
+        pp.hold_capcap(pp.OCTOPUS, state, env.sys, qp, act, gen, f"octopus_run {state} ")
+        assert kernels.pbd_step_launch.launches == before + 2
+
+
+@pytest.mark.parametrize("n", [1, 3, 4097])
+def test_octopus_kernel_ragged_batches(cuda, n):
+    from brax_torch.tools import pbd_parity as pp
+
+    env = pp.composer_env(pp.OCTOPUS, n, "cuda")
+    qp, act = pp.octopus_states(env, n, 1, "cuda")[pp.OCTOPUS_STATES[1]]
+    assert kernels.launch_geometry(kernels.plan(env.sys), n) == (n, 64)
+    pp.hold_capcap(pp.OCTOPUS, pp.OCTOPUS_STATES[1], env.sys, qp, act,
+                   torch.Generator(device=cuda).manual_seed(7), f"octopus_run {n} ")
+
+
+@pytest.mark.parametrize("fault", ["wide_warp_local", "wide_v3_swapped", "wide_float_own_lane"])
+def test_planted_wide_fault_fails_octopus_rule(cuda, octopus_states, fault):
+    """A fault planted in the wide route's exchange fails octopus_run's rule
+    over one substep from the jiggled state (the rounding rule)."""
+    from brax_torch.tools import pbd_parity as pp
+    from brax_torch.tools import pbd_turns
+    from tests import pbd_faults
+
+    env, states = octopus_states
+    qp, act = states[pp.OCTOPUS_STATES[2]]
+    sys_ = pp.one_pass(env.sys)
+    assert pp.RULES[pp.OCTOPUS][pp.OCTOPUS_STATES[2]][0] == "max_errors"
+    step = pbd_faults.card_step(pbd_turns.load(pbd_turns.other_source(
+        sys_, pbd_faults.planted_path(fault))))
+    got = pp.fields(*step(sys_, qp, act))
+    r = pp.rounding_rule(sys_, qp, act, got, torch.Generator(device=cuda).manual_seed(7))
+    assert not r["passes"], (fault, len(r["outliers"]), r["errs"])
+
+
+def _counted(run):
+    kernels.pbd_step_launch.launches = 0
+    fused_mlp.chain_fwd.launches = fused_mlp.chain_bwd.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, (fused_mlp.chain_fwd.launches, fused_mlp.chain_bwd.launches,
+                 kernels.pbd_step_launch.launches)
+
+
+# a small recipe: 64 envs, 2 unrolls of 5 steps, 4 minibatches, 1 update
+SMALL_RECIPE = dict(num_timesteps=320, episode_length=10, num_envs=64, batch_size=32,
+                    num_minibatches=4, unroll_length=5, num_updates_per_batch=1, num_evals=1,
+                    num_eval_envs=8, normalize_observations=True, seed=0)
+
+
+def test_mappo_and_diayn_launch_exactly(cuda):
+    """MAPPO on the 2-agent ant chase: per agent a policy chain an env step,
+    three chains forward and two backward a minibatch; DIAYN on v1 ant:
+    PPO's launches, and the discriminator's loss forward and backward and
+    its relabel forward once a training step; the physics once an env step
+    (the eval's 10 steps included); finite losses."""
+    from brax_torch.braxlines import discriminators, train as bl_train
+    from brax_torch.composer import envs as composer_envs
+    from brax_torch.composer.training import mappo
+
+    chase = lambda b, d: composer_envs.create_ma_env(
+        task="chase", episode_length=None, batch_size=b, auto_reset=False, device=d).unwrapped
+    (_, _, metrics), got = _counted(lambda: mappo.train(chase, device=cuda, **SMALL_RECIPE))
+    rollout, sgd, evals = 10, 4, 10
+    assert got == (2 * (rollout + 3 * sgd + evals), 2 * 2 * sgd, rollout + evals)
+    assert math.isfinite(metrics["training/total_loss"])
+    disc = discriminators.SkillDiscriminator(obs_indices=(13, 14), obs_scale=10.0, z_size=2,
+                                             dist_q="categorical", dist_p="categorical")
+    (_, params, metrics), got = _counted(lambda: bl_train.train_vgcrl(
+        "ant", disc, device=cuda, use_fused_kernel=True, **SMALL_RECIPE))
+    assert got == (rollout + 3 * sgd + 2 + evals, 2 * sgd + 1, rollout + evals)
+    assert len(params) == 3 and math.isfinite(metrics["training/total_loss"])
 
 
 @pytest.mark.parametrize("name", ["ant", "halfcheetah", "grasp", "fetch", "ant_spring",

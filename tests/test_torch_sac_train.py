@@ -3,8 +3,8 @@
 tests/test_v2_training.py::test_sac_trains_v2_inverted_pendulum.
 
 The JAX package's learning gate (its hyperparameters, 32,768 SGD steps,
-~5 min here) is marked slow; the tier-1 check runs 4096 SGD steps (~35 s)
-and is held to SHORT_GATE, set from a CPU run of this port: eval rewards
+~5 min here) is marked slow, and so is the short check (4096 SGD steps,
+64-71 s on one CPU thread), held to SHORT_GATE, set from a CPU run of this port: eval rewards
 99.9 / 112.8 / 118.9 at seeds 0 / 1 / 2, against 64.8-70 for the initial
 policy (the best policy's reward is ~140).
 """
@@ -39,6 +39,7 @@ def test_sac_learns_fast_env():
     assert metrics["eval/episode_reward"] > 140 * 0.995
 
 
+@pytest.mark.slow  # 4096 SGD steps on one CPU thread: 64-71 s, past the 60 s a tier-1 item may take
 def test_sac_learns_fast_env_short():
     _, _, metrics = _train_fast(0, num_timesteps=2**13, num_envs=32, num_evals=2,
                                 grad_updates_per_step=16)
