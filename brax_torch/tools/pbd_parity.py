@@ -153,6 +153,28 @@ RULES = {
     "octopus_run": {"reset": ("chaos_rule", "chaos_rule"),
                     "after 10 twin steps": ("max_errors", "max_errors"),
                     "jiggled": ("max_errors", "chaos_rule")},
+    # biggym's new Systems (BIGGYM_SCENES below; one pass / the whole
+    # step): the chaos rule where the twin itself left TOLERANCE under
+    # CHAOS_NOISE in MAX_OUTLIERS or more of 4096 envs in one of three
+    # draws on the CPU (biggym_states' seed 0), as the 2-agent chase's at
+    # the limit: race_proant_ant's reset 0 / 0, after 10 steps 0-1 / 1-3;
+    # chase_proant_ant's 0 / 0-1 and 0-2 / 1-3; sumo_proant_ant's 0 / 0-1
+    # and 2-3 / 5-6; the race match's 5-9 / 6-10 and 0-2 / 2-4; the sumo
+    # match's 8-10 / 10-11 and 0-1 / 1-4; the onigokko match's 0 / 0-1 and
+    # 0-1 / 2-4 (a reset draws nothing: its 4096 envs are one state)
+    "race_proant_ant": {"reset": ("max_errors", "max_errors"),
+                        "after 10 twin steps": ("max_errors", "max_errors")},
+    "chase_proant_ant": {"reset": ("max_errors", "max_errors"),
+                         "after 10 twin steps": ("max_errors", "max_errors")},
+    "sumo_proant_ant": {"reset": ("max_errors", "max_errors"),
+                        "after 10 twin steps": ("max_errors", "chaos_rule")},
+    "match_race_ma__ant_ant__proant_ant": {"reset": ("chaos_rule", "chaos_rule"),
+                                           "after 10 twin steps": ("max_errors", "chaos_rule")},
+    "match_sumo__ant_ant__proant_ant": {"reset": ("chaos_rule", "chaos_rule"),
+                                        "after 10 twin steps": ("max_errors", "chaos_rule")},
+    "match_onigokko_prey__proant_ant__ant_ant": {
+        "reset": ("max_errors", "max_errors"),
+        "after 10 twin steps": ("max_errors", "chaos_rule")},
 }
 
 
@@ -722,3 +744,49 @@ def octopus_states(env, n, seed, device):
                           ang=kick(reset.ang, integ.rot_mask))
     return {OCTOPUS_STATES[0]: (reset, act()), OCTOPUS_STATES[1]: (settled, act()),
             OCTOPUS_STATES[2]: (jiggled, act())}
+
+
+# biggym (brax_torch/biggym): the Systems of its 12 registry and match
+# scenes that no earlier scene has (race_ant_ant's is v1 ant's,
+# jump_cheetah's halfcheetah's, sumo_ant_ant's the composer chase's), one
+# scene each: onigokko's predator matches are its prey matches mirrored,
+# and the race match shares the ant-against-proant prey match's System.
+# Each is held from a reset (which draws nothing: every env alike) and 10
+# twin steps after it on uniform actions, each on one more action
+BIGGYM_SCENES = ("race_proant_ant", "chase_proant_ant", "sumo_proant_ant",
+                 "match_race_ma__ant_ant__proant_ant", "match_sumo__ant_ant__proant_ant",
+                 "match_onigokko_prey__proant_ant__ant_ant")
+BIGGYM_STATES = ("reset", "after 10 twin steps")
+
+
+def biggym_registry():
+    """brax_torch.biggym with its registry filled (register_all, then
+    register_matches, once)."""
+    from brax_torch import biggym
+
+    biggym.register_all()
+    if not biggym.ENVS_BY_TRACKS["goal_oriented_matches"]:
+        biggym.register_matches()
+    return biggym
+
+
+def biggym_env(scene, n, device):
+    """The bare env of a biggym scene, n envs (a plain env, jump_cheetah, is
+    built bare; a task env without its wrappers)."""
+    biggym = biggym_registry()
+    if scene in biggym.ENVS_BY_TRACKS["open_ended"]:
+        return biggym.create(scene, batch_size=n, device=device)
+    return biggym.create(scene, batch_size=n, device=device, episode_length=None,
+                         auto_reset=False).unwrapped
+
+
+def biggym_states(env, n, seed, device):
+    """{state: (qp, act)} of a biggym scene (`env` bare, n envs) at
+    BIGGYM_STATES, each with one more action uniform in [-1, 1]."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    act = lambda: torch.rand((n, env.action_size), generator=gen, device=device) * 2 - 1
+    reset = env.reset(gen).qp
+    settled = reset
+    for _ in range(10):
+        settled, _ = kernels.pbd_step_plain(env.sys, settled, act())
+    return {BIGGYM_STATES[0]: (reset, act()), BIGGYM_STATES[1]: (settled, act())}

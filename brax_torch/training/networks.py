@@ -134,8 +134,11 @@ def flax_param_dict(params, device="cpu") -> Dict[str, Tensor]:
     as the port's name -> tensor mapping (`hidden_i.kernel`,
     `MLP_i.hidden_j.bias`: the names of `named_parameters()`), copies on
     `device`; the layouts are the same.  Anything else (a discriminator's
-    {"empty": 0}) maps leaf by leaf."""
+    {"empty": 0}) maps leaf by leaf, and a bare array (an ARS policy's
+    (obs, act) matrix) is its tensor."""
     tensor = lambda x: torch.tensor(np.array(x, dtype=np.float32), device=device)
+    if not isinstance(params, Mapping):
+        return tensor(params)
     if "params" not in params:
         return {k: tensor(v) for k, v in params.items()}
     out = {}

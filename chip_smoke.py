@@ -154,6 +154,23 @@
    per agent; DIAYN PPO's and the discriminator's, whose loss and relabel
    run once a training step), finite losses, every parameter moved (the
    discriminator's too), the joint action the env's width, env-steps/s;
+9i. biggym (brax_torch/biggym, its registry filled by register_all and
+   register_matches): every distinct System of its 12 scenes built (ptxas
+   and launch printed; three are earlier scenes' Systems); its six new
+   Systems (pbd_parity.BIGGYM_SCENES: one warp for race_proant_ant, the
+   wide route at 64 and 128 lanes for the rest) held against the twin at
+   4096 envs from a reset and after 10 twin steps (pbd_parity.
+   biggym_states), over one pass and the whole step, by the rule
+   pbd_parity.RULES names; env.step of every scene through
+   biggym.create(name, batch_size=4096): 50 steps (5 profiled), one launch
+   each, finite observations, a (N, 2) reward on the two-agent and match
+   scenes; the kernel's timings, bound and plain version per new System;
+   then ES (population 128, 256 envs) and ARS (60 directions, 120 envs,
+   top 20) on v1 ant at their defaults (episodes of 1000 steps): two epochs
+   and one eval of 128 envs each, exactly 3000 PBD launches and no fused
+   MLP launch, finite scores, moved params, env-steps/s, and one profiled
+   epoch of 50-step episodes and its eval (the device's kernels, busy
+   share);
 10. holds the generalized-step kernel (brax_torch/csrc/gen_step.cu, built
    for the v2 ant) against its plain version at 4096 envs from a state 10
    plain env steps after reset, at one frame and at ant's five, with the
@@ -196,8 +213,8 @@
    nothing under no_grad; on ant also over APG_GRAD_STEPS steps by
    grad_parity.hold_rollout_grads' per-env rules, and timed; the same on
    the v2 ant at 2048 envs against autograd through five pipeline steps;
-   then apg.train on v1 ant (16 steps) and v2 ant (8 steps) at 2048 envs,
-   an epoch each plain and truncated every 4 steps, with the exact launch
+   then apg.train on v1 ant and v2 ant (8 steps each)
+   at 2048 envs, an epoch each plain and truncated every 4 steps, with the exact launch
    counts and backward runs, finite nonzero gradients, moved parameters
    and a finite eval reward, and an {"apg": ...} line (seconds of rollout,
    backward and update, launches, the checks, peak memory);
@@ -263,9 +280,11 @@ from brax_torch.sim import kernels
 from brax_torch.tools import bench_v2_generalized as bench_v2
 from brax_torch.tools import fused_turns, grad_parity
 from brax_torch.tools import probe_overhead as probe
-from brax_torch.tools.pbd_parity import (COMPOSER_SCENES, COMPOSER_WIDE, MAX_OUTLIERS, OCTOPUS,
-                                         PERTURBED_COPIES, ROUNDING_NOISE, RULES, SPRING_SCENES,
-                                         STATES, TOLERANCE, capcap_share, capcap_state,
+from brax_torch.tools.pbd_parity import (BIGGYM_SCENES, COMPOSER_SCENES, COMPOSER_WIDE,
+                                         MAX_OUTLIERS, OCTOPUS, PERTURBED_COPIES, ROUNDING_NOISE,
+                                         RULES, SPRING_SCENES, STATES, TOLERANCE, biggym_env,
+                                         biggym_registry, biggym_states, capcap_share,
+                                         capcap_state,
                                          composer_env, composer_scene, composer_states,
                                          contact_share, corners_down, fetch_states,
                                          fingertips_on_ball, force_scene_states, grasp_states,
@@ -274,6 +293,9 @@ from brax_torch.tools.pbd_parity import (COMPOSER_SCENES, COMPOSER_WIDE, MAX_OUT
 from brax_torch.training import fused_mlp
 from brax_torch.training.agents.apg import networks as apg_networks
 from brax_torch.training.agents.apg import train as apg
+from brax_torch.training.agents.ars import train as ars
+from brax_torch.training.agents.es import networks as es_networks
+from brax_torch.training.agents.es import train as es
 from brax_torch.training.agents.ppo import networks as ppo_networks
 from brax_torch.training.agents.ppo import train as ppo
 from brax_torch.training.agents.sac import networks as sac_networks
@@ -421,7 +443,7 @@ SPRING_ANT = envs.create_fn("ant", legacy_spring=True, episode_length=None, auto
 # rate and clip (brax_tpu/training/learner.py:47-48), and the gradient
 # checks' steps over which the kernel's trajectory and the twin's part
 APG_ENVS, APG_EVAL_ENVS = 2048, 128
-APG_EPISODE = {"v1 ant": 16, "v2 ant": 8}
+APG_EPISODE = {"v1 ant": 8, "v2 ant": 8}
 APG_TRUNCATION = 4
 APG_RECIPE = dict(learning_rate=5e-4, max_gradient_norm=1e9, normalize_observations=True)
 APG_GRAD_STEPS = 4
@@ -473,8 +495,17 @@ COMPOSER_TIMED = ("pro_ant_run", "ant_push", "ant_on_ball", "halfcheetah_run", "
 COMPOSER_HELD = COMPOSER_WIDE + (OCTOPUS,)
 # MAPPO on the 2-agent ant chase and DIAYN on v1 ant, training steps each
 MAPPO_STEPS = 2
+POP_EPISODE = 1000  # ES's and ARS's default episode_length
+# the profiled epoch's episodes: the profiler reads ~220 kernels a step at
+# ~0.2 ms each, 90 s for an epoch and eval of 1000 steps
+POP_PROFILE_EPISODE = 50
 DIAYN_STEPS = 2
 COMPOSER_STEPS = 50
+# of them profiled (the profiler's reading of a step's ~200-900 kernels
+# costs ~0.2 ms each): 10 for the composer's scenes,
+# BIGGYM_PROFILED for biggym's
+COMPOSER_PROFILED = 10
+BIGGYM_PROFILED = 5
 COMPOSER_WARM = 2
 # env.step calls timed by the host clock after the profiled ones
 COMPOSER_TIMED_STEPS = 10
@@ -1142,11 +1173,14 @@ def check_ppo_run(label, metrics, recorder, policy_params, launches, want):
 
 
 def profile_training_step(fused, environment="ant", preset="ant", run=None, prefix="ppo",
-                          parts=("rollout", "sgd")):
-    """Device time, device-op count and top kernels of the second of two
+                          parts=("rollout", "sgd"), steps=2):
+    """Device time, device-op count and top kernels of the last of `steps`
     training steps (the host range "ppo/training_step", which ends in a
     synchronise), and the host time of its rollout and SGD ranges; or of
     the last "{prefix}/training_step" of `run()` and its `parts`' ranges.
+    `chip_smoke.py` profiles one step (steps=1: its process has run the
+    recipe's PPO before, so nothing is built or first-called in it; the
+    profiler reads a step's ~200k events at ~0.2 ms each).
 
     The episode is cut to PROFILE_EPISODE steps so that the run's one
     evaluation stays short; a training step does the same work at any
@@ -1155,7 +1189,7 @@ def profile_training_step(fused, environment="ant", preset="ant", run=None, pref
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         if run is None:
-            run_ppo(fused, steps=2, environment=environment, preset=preset,
+            run_ppo(fused, steps=steps, environment=environment, preset=preset,
                     episode_length=PROFILE_EPISODE)
         else:
             run()
@@ -2311,14 +2345,16 @@ def sac_paths(tag, phase):
 
 
 
-def composer_main_path(tag, scene):
-    """env.step of a composer scene at N_ENVS: COMPOSER_WARM steps, then
-    COMPOSER_STEPS profiled steps with exactly one PBD launch each (counts
-    set to 0 just before, read just after), then COMPOSER_TIMED_STEPS steps
-    timed by the host clock; finite observations and a (N, agents) or (N,) reward; the device
-    busy share (the profiled device time per step over the unprofiled host
-    time per step).  Returns the record."""
-    env = composer_scene(scene, N_ENVS, DEVICE, episode_length=1000, auto_reset=True)
+def composer_main_path(tag, scene, env=None, label="composer", profiled=COMPOSER_PROFILED):
+    """env.step of a composer scene at N_ENVS (or of `env`, a biggym scene's):
+    COMPOSER_WARM steps, then COMPOSER_STEPS steps with exactly one PBD
+    launch each (counts set to 0 just before, read just after), the first
+    `profiled` of them profiled, then COMPOSER_TIMED_STEPS steps timed by
+    the host clock; finite observations and a (N, agents) or (N,) reward;
+    the device busy share (the profiled device time per step over the
+    unprofiled host time per step).  Returns the record."""
+    if env is None:
+        env = composer_scene(scene, N_ENVS, DEVICE, episode_length=1000, auto_reset=True)
     inner = env.unwrapped
     state = env.reset(torch.Generator(device=DEVICE).manual_seed(1))
     act_gen = torch.Generator(device=DEVICE).manual_seed(2)
@@ -2331,25 +2367,28 @@ def composer_main_path(tag, scene):
     # the device's kernels only: recording every host op of 50 steps costs
     # the profiler minutes across the scenes
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(COMPOSER_STEPS):
+        for _ in range(profiled):
             state = env.step(state, act())
         torch.cuda.synchronize()
+    for _ in range(COMPOSER_STEPS - profiled):
+        state = env.step(state, act())
+    torch.cuda.synchronize()
     launches = kernels.pbd_step_launch.launches
     if launches != COMPOSER_STEPS:
         raise AssertionError(f"{COMPOSER_STEPS} {scene} env steps made {launches} launches")
     device_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(
         e, "self_cuda_time_total", 0)
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(device_us(e) for e in events) / COMPOSER_STEPS
-    kernels_per_step = sum(e.count for e in events) / COMPOSER_STEPS
-    pbd_us = sum(device_us(e) for e in events if "pbd_step" in e.key) / COMPOSER_STEPS
+    dev_us = sum(device_us(e) for e in events) / profiled
+    kernels_per_step = sum(e.count for e in events) / profiled
+    pbd_us = sum(device_us(e) for e in events if "pbd_step" in e.key) / profiled
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(COMPOSER_TIMED_STEPS):
         state = env.step(state, act())
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / COMPOSER_TIMED_STEPS * 1e3
-    agents = len(inner.agent_names)
+    agents = len(getattr(inner, "agent_names", ()))
     want_reward = (N_ENVS, agents) if agents else (N_ENVS,)
     if tuple(state.reward.shape) != want_reward:
         raise AssertionError(f"{scene} reward shape {tuple(state.reward.shape)}")
@@ -2365,8 +2404,8 @@ def composer_main_path(tag, scene):
            "agents": agents, "done_fraction": float(state.done.mean()),
            "wide": kernels.plan(inner.sys).wide}
     busy = f"{rec['busy_share']:.3f}" if dev_us else "not measured (no device time recorded)"
-    print(f"main path composer {scene}: {COMPOSER_STEPS} profiled env.step calls, {launches} "
-          f"pbd_step launches, obs {tuple(state.obs.shape)} finite, reward "
+    print(f"main path {label} {scene}: {COMPOSER_STEPS} env.step calls ({profiled} profiled), "
+          f"{launches} pbd_step launches, obs {tuple(state.obs.shape)} finite, reward "
           f"{tuple(state.reward.shape)}; env.step {step_ms:.4f} ms/step, "
           f"{rec['env_steps_per_s']:.1f} env-steps/s (host clock, {COMPOSER_TIMED_STEPS} "
           f"steps); device "
@@ -2409,27 +2448,175 @@ def composer_paths(tag, phase):
     mains = {scene: composer_main_path(tag, scene) for scene in COMPOSER_SCENES}
 
     phase("composer: pbd_step timings")
-    scenes = {}
-    for scene in COMPOSER_TIMED:
-        env_ = composer_env(scene, N_ENVS, device)
-        sys_ = env_.sys
-        gen_t = torch.Generator(device=device).manual_seed(3)
-        qp = env_.reset(gen_t).qp
-        for _ in range(COMPOSER_SETTLE):
-            qp, _ = kernels.pbd_step_plain(sys_, qp, torch.rand(
-                (N_ENVS, env_.action_size), generator=gen_t, device=device) * 2 - 1)
-        act = torch.rand((N_ENVS, env_.action_size), generator=gen_t, device=device) * 2 - 1
-        b = pbd_bound(sys_, qp, act)
-        r = {"bound": dict(zip(("bound_ms", "bound_by", "ops", "bytes"), b[:4])),
-             "launch": pbd_launch_report(sys_, PBD_TIMING_ENVS, f"composer {scene}")}
-        r["plain_ms"] = cuda_ms(lambda: kernels.pbd_step_plain(sys_, qp, act), reps=1, warmup=1)
-        r["ms_by_envs"] = pbd_timings(tag, sys_, qp, act, b[0] / N_ENVS, f"composer {scene}")
-        print(f"bound {tag}: pbd_step composer {scene} at {N_ENVS} envs ({COMPOSER_SETTLE} twin "
-              f"steps after a reset): {b[3]} bytes -> {b[4]:.5f} ms at 3.35 TB/s; {b[2]} fp32 ops (the "
-              f"twin's, counted) -> {b[5]:.5f} ms at 67 TFLOP/s; plain twin "
-              f"{r['plain_ms']:.3f} ms/step")
-        scenes[scene] = r
+    scenes = {scene: scene_timings(tag, f"composer {scene}", composer_env(scene, N_ENVS, device))
+              for scene in COMPOSER_TIMED}
     return {"checks": w_checks, "main": mains, "scene": scenes}
+
+
+def scene_timings(tag, label, env_):
+    """The PBD kernel for a bare env's System at PBD_TIMING_ENVS envs from
+    COMPOSER_SETTLE twin steps after a reset (pbd_timings), its bound at
+    N_ENVS (pbd_bound), its plain twin's time and its launch.  Returns the
+    record."""
+    device = DEVICE
+    sys_ = env_.sys
+    gen_t = torch.Generator(device=device).manual_seed(3)
+    qp = env_.reset(gen_t).qp
+    for _ in range(COMPOSER_SETTLE):
+        qp, _ = kernels.pbd_step_plain(sys_, qp, torch.rand(
+            (N_ENVS, env_.action_size), generator=gen_t, device=device) * 2 - 1)
+    act = torch.rand((N_ENVS, env_.action_size), generator=gen_t, device=device) * 2 - 1
+    b = pbd_bound(sys_, qp, act)
+    r = {"bound": dict(zip(("bound_ms", "bound_by", "ops", "bytes"), b[:4])),
+         "launch": pbd_launch_report(sys_, PBD_TIMING_ENVS, label)}
+    r["plain_ms"] = cuda_ms(lambda: kernels.pbd_step_plain(sys_, qp, act), reps=1, warmup=1)
+    r["ms_by_envs"] = pbd_timings(tag, sys_, qp, act, b[0] / N_ENVS, label)
+    print(f"bound {tag}: pbd_step {label} at {N_ENVS} envs ({COMPOSER_SETTLE} twin steps "
+          f"after a reset): {b[3]} bytes -> {b[4]:.5f} ms at 3.35 TB/s; {b[2]} fp32 ops (the "
+          f"twin's, counted) -> {b[5]:.5f} ms at 67 TFLOP/s; plain twin "
+          f"{r['plain_ms']:.3f} ms/step")
+    return r
+
+
+def biggym_paths(tag, phase, bg_envs):
+    """The biggym phases: each new System (BIGGYM_SCENES, `bg_envs` their
+    bare envs at N_ENVS) against the twin from pbd_parity.biggym_states
+    over one pass and the whole step, by pbd_parity.RULES; env.step of
+    every registry scene through biggym.create (composer_main_path: one
+    launch a step, finite observations, a (N, 2) reward on the two-agent
+    and match scenes); the kernel's timings, bound and plain version per
+    new System (scene_timings)."""
+    device = DEVICE
+    phase("biggym: pbd_step parity")
+    gen = torch.Generator(device=device).manual_seed(7)
+    checks = {}
+    for scene in BIGGYM_SCENES:
+        env_ = bg_envs[scene]
+        per = {}
+        for state, (qp, act) in biggym_states(env_, N_ENVS, 0, device).items():
+            share = contact_share(env_.sys, qp, act)
+            rule = RULES[scene][state]
+            print(f"parity state: biggym {scene}, {N_ENVS} envs, {state}, action "
+                  f"{tuple(act.shape)}, {share:.3f} in contact; one pass by {rule[0]}, the whole "
+                  f"step by {rule[1]}")
+            per[state] = {**hold_capcap(scene, state, env_.sys, qp, act, gen,
+                                        f"biggym {scene} {state} "), "contact_share": share}
+        checks[scene] = per
+
+    phase("biggym: main paths")
+    biggym = biggym_registry()
+    mains = {}
+    for scene in biggym.ENVS:
+        rec = mains[scene] = composer_main_path(
+            tag, scene, env=biggym.create(scene, batch_size=N_ENVS, device=device),
+            label="biggym", profiled=BIGGYM_PROFILED)
+        two = scene.startswith(("match_", "chase_", "sumo_"))
+        if rec["agents"] != (2 if two else 0):
+            raise AssertionError(f"biggym {scene}: {rec['agents']} agents")
+
+    phase("biggym: pbd_step timings")
+    scenes = {scene: scene_timings(tag, f"biggym {scene}", bg_envs[scene])
+              for scene in BIGGYM_SCENES}
+    return {"checks": checks, "main": mains, "scene": scenes}
+
+
+def population_paths(tag, phase):
+    """ES and ARS on v1 ant at their trainers' defaults (ES: population
+    128, 256 envs; ARS: 60 directions, 120 envs, top 20; episodes of
+    1000 steps): two epochs (num_timesteps one more than an epoch's env
+    steps: every ant lives its 1000 steps, so the second epoch ends the
+    run) and one eval of PPO_EVAL_ENVS envs each, exactly (epochs + 1) x
+    1000 PBD launches and no fused MLP launch, finite scores, the params
+    moved; env-steps/s; then one epoch of POP_PROFILE_EPISODE-step episodes
+    and its eval profiled (the device's kernels only), its device time per
+    env step and busy share."""
+    out = {}
+    for label, trainer, kw, n_envs in (
+            ("ES", es, {"population_size": 128}, 256),
+            ("ARS", ars, {"number_of_directions": 60, "top_directions": 20}, 120)):
+        phase(f"main path: {label} on v1 ant")
+        run = dict(episode_length=POP_EPISODE, num_eval_envs=PPO_EVAL_ENVS, seed=0,
+                   device=DEVICE, **kw)
+        epochs, initial = [], {}
+        real_episode = trainer.run_episode
+
+        def counting(*args, **kwargs):
+            epochs.append(1)
+            return real_episode(*args, **kwargs)
+
+        if trainer is es:
+            def factory(*args, **kwargs):
+                nets = es_networks.make_es_networks(*args, **kwargs)
+                init = nets.policy_network.init
+                nets.policy_network.init = lambda gen: initial.update(
+                    {k: v.detach().clone() for k, v in init(gen).items()}) or dict(
+                    nets.policy_network.mlp.named_parameters())
+                return nets
+
+            run["network_factory"] = factory
+        trainer.run_episode = counting
+        try:
+            (make_policy, params, metrics), launches, seconds = counted(lambda: trainer.train(
+                "ant", num_timesteps=n_envs * POP_EPISODE + 1, **run))
+        finally:
+            trainer.run_episode = real_episode
+        want = {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0, "pbd_step": (len(epochs) + 1) * POP_EPISODE}
+        if len(epochs) != 2 or launches != want:
+            raise AssertionError(f"{label}: {len(epochs)} epochs, launches {launches}, expected "
+                                 f"{want}")
+        for key in ("training/eval_scores_mean", "training/eval_scores_std",
+                    "training/params_norm", "eval/episode_reward"):
+            if not np.isfinite(metrics[key]):
+                raise AssertionError(f"{label} {key} = {metrics[key]}")
+        if trainer is es:
+            moved = moved_from(initial, params[1], label)
+            moved_text = f"every parameter moved (smallest max change {moved:.3e})"
+        else:
+            moved = float(params[1].abs().max())
+            if not moved > 0:
+                raise AssertionError("ARS: W did not move from zero")
+            moved_text = f"W moved from zero (largest entry {moved:.3e})"
+        print(f"main path {label} v1 ant: 2 epochs of {n_envs} envs x {POP_EPISODE} steps + one "
+              f"eval of {PPO_EVAL_ENVS} envs in {seconds:.1f} s; launches {launches} (as "
+              f"expected); eval_scores_mean {metrics['training/eval_scores_mean']:.5g}, "
+              f"eval/episode_reward {metrics['eval/episode_reward']:.5g}; {moved_text}")
+        print(f"timing {tag}: {label} v1 ant epoch 2: {metrics['training/sps']:.1f} env-steps/s "
+              f"(host clock; rollout {metrics['training/rollout_s']:.3f} s, update "
+              f"{metrics['training/update_s']:.4f} s); eval {metrics['eval/sps']:.1f} env-steps/s")
+        from torch.profiler import ProfilerActivity, profile
+
+        run.pop("network_factory", None)
+        run["episode_length"] = POP_PROFILE_EPISODE
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            trainer.train("ant", num_timesteps=1, **run)
+            torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        device_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0)
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        steps = 2 * POP_PROFILE_EPISODE
+        dev_us = sum(device_us(e) for e in events)
+        pbd_us = sum(device_us(e) for e in events if "pbd_step" in e.key)
+        prof_rec = {"device_us_per_step": dev_us / steps, "pbd_step_us_per_step": pbd_us / steps,
+                    "kernels_per_step": sum(e.count for e in events) / steps,
+                    "wall_s": wall_s, "busy_share": dev_us / (wall_s * 1e6) if dev_us else None}
+        busy = f"{prof_rec['busy_share']:.3f}" if dev_us else "not measured (no device time)"
+        print(f"profile {tag}: {label} v1 ant, one epoch of {POP_PROFILE_EPISODE}-step episodes "
+              f"and its eval ({steps} env steps, the device's kernels only): "
+              f"{prof_rec['device_us_per_step']:.1f} us device time a step "
+              f"({prof_rec['pbd_step_us_per_step']:.1f} of it pbd_step), "
+              f"{prof_rec['kernels_per_step']:.1f} kernels a step, {wall_s:.2f} s wall, busy "
+              f"{busy}")
+        for e in sorted(events, key=lambda e: -device_us(e))[:6]:
+            print(f"  {device_us(e) / steps:9.1f} us/step  {e.count / steps:6.2f}/step  "
+                  f"{e.key[:90]}")
+        out[label] = {"launches": launches, "epochs": len(epochs), "seconds": seconds,
+                      "env_steps_per_s": metrics["training/sps"], "metrics": metrics,
+                      "moved": moved, "profile": prof_rec, "envs": n_envs}
+    return out
 
 
 def mappo_chase(batch_size, device):
@@ -2695,14 +2882,18 @@ def chain_paths(tag, phase, gen_sys, gen_env):
             "ops": b[2], "bytes": b[3], "turns": turns, "schema": [k for k, _ in schema]}
 
 
-def wide_entry(co, tr, name_limit):
+def wide_entry(co, tr, bg, name_limit):
     """The kernels line's record of the PBD kernel's wide route (PBD_WIDE):
-    its launches on the wide scenes' main paths and MAPPO's, its parity
-    checks, and its timings per wide System (the 2-agent chase's at the top
-    level; octopus_run's, PBD_WIDE with PBD_SPRING, under by_scene)."""
+    its launches on the wide scenes' main paths (the composer's and
+    biggym's) and MAPPO's, its parity checks, and its timings per wide
+    System (the 2-agent chase's at the top level; octopus_run's, PBD_WIDE
+    with PBD_SPRING, and biggym's new wide Systems under by_scene)."""
     main = {s: r for s, r in co["main"].items() if r["wide"]}
+    bg_main = {s: r for s, r in bg["main"].items() if r["wide"]}
+    bg_wide = [s for s in bg["scene"] if bg["main"][s]["wide"]]
     chase = co["scene"]["chase"]
-    errs = [e for checks in co["checks"].values() for ck in checks.values()
+    errs = [e for checks in (*co["checks"].values(), *(bg["checks"][s] for s in bg_wide))
+            for ck in checks.values()
             for part in (ck, ck["one_pass"]) if part["rule"] == "max_errors"
             for e in part["max_abs_err_by_field"].values()]
     return {
@@ -2714,16 +2905,18 @@ def wide_entry(co, tr, name_limit):
                              "a warp",
         "design": "PBD_WIDE: one env a block of 64-256 threads, its lanes exchanging through "
                   "shared memory (a barrier, a write, a barrier, a read)",
-        "launches": sum(r["launches"] for r in main.values())
+        "launches": sum(r["launches"] for r in (*main.values(), *bg_main.values()))
         + tr["mappo"]["launches"]["pbd_step"],
         "launches_by_path": {**{f"composer {s} env.step": r["launches"] for s, r in main.items()},
-                             "MAPPO 2-agent chase": tr["mappo"]["launches"]["pbd_step"]},
+                             "MAPPO 2-agent chase": tr["mappo"]["launches"]["pbd_step"],
+                             **{f"biggym {s} env.step": r["launches"]
+                                for s, r in bg_main.items()}},
         "max_abs_err": max(errs),
         "max_abs_err_scope": "every env of every check held by max_errors (rounding-decided "
                              "outliers included); the chaotic checks (chaos_rule) under checks",
-        "rules": {name: RULES[name] for name in COMPOSER_HELD},
+        "rules": {name: RULES[name] for name in (*COMPOSER_HELD, *BIGGYM_SCENES)},
         "tolerance": TOLERANCE,
-        "checks": co["checks"],
+        "checks": {**co["checks"], **{f"biggym {s}": bg["checks"][s] for s in bg_wide}},
         "ms": chase["ms_by_envs"][N_ENVS]["graph"],
         "ms_host_issued": chase["ms_by_envs"][N_ENVS]["host"],
         "plain_ms": chase["plain_ms"],
@@ -2732,12 +2925,13 @@ def wide_entry(co, tr, name_limit):
         "library_ms": None,
         "shape": f"the 2-agent chase at {N_ENVS} envs (64 lanes an env); by_scene: sumo, "
                  f"the 4-agent chase and octopus_run (legacy spring)",
-        "by_scene": {s: {"ms": co["scene"][s]["ms_by_envs"][N_ENVS]["graph"],
-                         "ms_host_issued": co["scene"][s]["ms_by_envs"][N_ENVS]["host"],
-                         "ms_by_envs": co["scene"][s]["ms_by_envs"],
-                         "plain_ms": co["scene"][s]["plain_ms"], **co["scene"][s]["bound"],
-                         "launch": co["scene"][s]["launch"]}
-                     for s in ("chase", "sumo", "chase4", OCTOPUS)},
+        "by_scene": {label: {"ms": r["ms_by_envs"][N_ENVS]["graph"],
+                             "ms_host_issued": r["ms_by_envs"][N_ENVS]["host"],
+                             "ms_by_envs": r["ms_by_envs"], "plain_ms": r["plain_ms"],
+                             **r["bound"], "launch": r["launch"]}
+                     for label, r in (*((s, co["scene"][s])
+                                        for s in ("chase", "sumo", "chase4", OCTOPUS)),
+                                      *((f"biggym {s}", bg["scene"][s]) for s in bg_wide))},
         "card": name_limit,
     }
 
@@ -2771,6 +2965,13 @@ def main():
               for name in FETCH_ENV_STEPS}
     s_envs = {name: spring_env(name, N_ENVS, device) for name in SPRING_SCENES}
     comp_sys = {scene: composer_env(scene, N_ENVS, device).sys for scene in COMPOSER_SCENES}
+    bg_registry = biggym_registry()
+    bg_envs = {scene: biggym_env(scene, N_ENVS, device) for scene in bg_registry.ENVS}
+    # the distinct Systems of the registry's scenes (each predator match is
+    # a prey match mirrored, three scenes are earlier scenes' Systems)
+    bg_sources = {}
+    for scene, e in bg_envs.items():
+        bg_sources.setdefault(kernels.kernel_source(e.sys), []).append(scene)
     built = cuda_build.build(kernels.kernel_source(sys_), fused_mlp.SOURCE, probe.SOURCE,
                              *(kernels.kernel_source(e.sys) for e in h_envs.values()),
                              *(kernels.kernel_source(e.sys) for e in c_envs.values()),
@@ -2786,6 +2987,9 @@ def main():
                              *(kernels.kernel_source(s_) for s_ in comp_sys.values()),
                              *(kernels.kernel_source(one_pass(comp_sys[name]))
                                for name in COMPOSER_HELD),
+                             *bg_sources,
+                             *(kernels.kernel_source(one_pass(bg_envs[scene].sys))
+                               for scene in BIGGYM_SCENES),
                              *(gen_kernels.kernel_source(s) for s in scenes))
     print(f"build: {', '.join(p.name for p in built.values())} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a, in parallel)")
@@ -2802,6 +3006,12 @@ def main():
         print(f"composer {scene}: " + " ".join(
             line.strip() for line in kernels.ptxas_report(comp_sys[scene]).splitlines()
             if "registers" in line or "spill" in line))
+    for src, names in bg_sources.items():
+        s_ = bg_envs[names[0]].sys
+        print(f"biggym {', '.join(names)} ({src.name}; {s_.num_bodies} bodies, "
+              f"{kernels.plan(s_).nc} contact points): " + " ".join(
+                  line.strip() for line in kernels.ptxas_report(s_).splitlines()
+                  if "registers" in line or "spill" in line))
     print(fused_mlp.ptxas_report().strip())
     print(probe.ptxas_report().strip())
     for scene in scenes:
@@ -2817,6 +3027,9 @@ def main():
                 for name, e in g_envs.items()}
     b_launch = {name: pbd_launch_report(e.sys, PBD_TIMING_ENVS, name)
                 for name, e in b_envs.items()}
+    bg_launch = {", ".join(names): pbd_launch_report(bg_envs[names[0]].sys, PBD_TIMING_ENVS,
+                                                     f"biggym {', '.join(names)}")
+                 for names in bg_sources.values()}
     s_launch = {name: pbd_launch_report(e.sys, PBD_TIMING_ENVS, f"{name} (legacy spring)")
                 for name, e in s_envs.items()}
     hgmma = cuda_build.sass_count(built[probe.SOURCE], "HGMMA")
@@ -2951,7 +3164,7 @@ def main():
             run_ppo(fused, PPO_STEPS)[2]["training/sps_after_first"])
     print(f"timing {tag}: PPO training env-steps/s over steps 2-{PPO_STEPS} (host clock): "
           f"fused_mlp on {sps['on']}, off {sps['off']}")
-    profiles = {"on": print_profile(tag, "", "on", profile_training_step(True))}
+    profiles = {"on": print_profile(tag, "", "on", profile_training_step(True, steps=1))}
 
     h = humanoid_paths(tag, phase, h_envs, checks, fused_plans, times, bounds)
     h_scene, h_main, h_launches, h_ppo = h["scene"], h["main"], h["launches"], h["ppo"]
@@ -2968,6 +3181,8 @@ def main():
     s_scene, s_main, s_launches = sp_["scene"], sp_["main"], sp_["launches"]
     co = composer_paths(tag, phase)
     tr = trainer_paths(tag, phase, checks)
+    bg = biggym_paths(tag, phase, bg_envs)
+    pop = population_paths(tag, phase)
 
     def fused_entry(kind, replaces, function):
         main = ("value", 5120, "bf16")
@@ -3191,7 +3406,8 @@ def main():
     print(f"timing {tag}: PPO on v2 ant, training env-steps/s over steps 2-{PPO_STEPS} (host "
           f"clock): fused_mlp on {v2_sps['on']}, off {v2_sps['off']}")
     v2_profiles = {"on": print_profile(tag, "PPO v2 ant, ", "on",
-                                       profile_training_step(True, environment=v2_ant))}
+                                       profile_training_step(True, environment=v2_ant,
+                                                             steps=1))}
 
     # -- APG: the physics Functions' gradients, then apg.train on v1 and v2 ant ----------
     apg_states.update({"grasp": tuple(g_scene["grasp"][k] for k in ("sys", "qp", "act")),
@@ -3335,6 +3551,18 @@ def main():
         "runs": sac_run["runs"],
         "fused_checks": {f"{c}@{r}": v for (c, r), v in sac_run["chains"]["checks"].items()},
         "card": name_limit}}))
+    print(json.dumps({"biggym_es_ars": {
+        "biggym_main_paths": bg["main"],
+        "biggym_systems": {", ".join(names): src.name for src, names in bg_sources.items()},
+        "biggym_launch": bg_launch,
+        **{label: {k: r[k] for k in ("launches", "epochs", "seconds", "env_steps_per_s",
+                                     "moved", "profile", "envs")}
+           | {"eval_episode_reward": r["metrics"]["eval/episode_reward"],
+              "eval_scores_mean": r["metrics"]["training/eval_scores_mean"],
+              "rollout_s": r["metrics"]["training/rollout_s"],
+              "update_s": r["metrics"]["training/update_s"]}
+           for label, r in pop.items()},
+        "card": name_limit}}))
     print(json.dumps({"kernels": [{
         "name": "pbd_step",
         "route": "cuda",
@@ -3353,7 +3581,10 @@ def main():
             for ck in r["checks"].values()
             if ck["one_pass"]["rule"] == "max_errors"
             for e in ck["one_pass"]["max_abs_err_by_field"].values()] + [
-            *g["twister"]["max_abs_err_by_field"].values()]),
+            *g["twister"]["max_abs_err_by_field"].values()] + [
+            e for scene, per in bg["checks"].items() if not bg["main"][scene]["wide"]
+            for ck in per.values() for part in (ck, ck["one_pass"])
+            if part["rule"] == "max_errors" for e in part["max_abs_err_by_field"].values()]),
         "max_abs_err_scope": "every env of every check held by max_errors (rounding-decided "
                              "outliers included); the chaotic checks (chaos_rule) under "
                              "by_scene",
@@ -3398,6 +3629,10 @@ def main():
                                 for scene, r in co["main"].items()},
                              "MAPPO 2-agent chase (wide)": tr["mappo"]["launches"]["pbd_step"],
                              "DIAYN v1 ant": tr["diayn"]["launches"]["pbd_step"],
+                             **{f"biggym {scene} env.step": r["launches"]
+                                for scene, r in bg["main"].items() if not r["wide"]},
+                             **{f"{label} v1 ant": r["launches"]["pbd_step"]
+                                for label, r in pop.items()},
                              **{f"APG v1 ant {kind}": r["launches"]["pbd_step"]
                                 for kind, r in apg_run["v1 ant"].items()},
                              **{f"SAC {label}": r["launches"]["physics"]
@@ -3460,10 +3695,17 @@ def main():
                 "launch": r["launch"], "main_path": co["main"][scene],
                 **({"checks": co["checks"][scene]} if scene in co["checks"] else {})}
                for scene, r in co["scene"].items()},
+            **{f"biggym {scene}": {
+                "ms": r["ms_by_envs"][N_ENVS]["graph"],
+                "ms_host_issued": r["ms_by_envs"][N_ENVS]["host"],
+                "ms_by_envs": r["ms_by_envs"], "plain_ms": r["plain_ms"], **r["bound"],
+                "launch": r["launch"], "main_path": bg["main"][scene],
+                "checks": bg["checks"][scene]}
+               for scene, r in bg["scene"].items() if not bg["main"][scene]["wide"]},
         },
         "card": name_limit,
     },
-        wide_entry(co, tr, name_limit),
+        wide_entry(co, tr, bg, name_limit),
         fused_entry("fwd", "brax_tpu/training/fused_mlp.py:204",
                     "brax_tpu/training/fused_mlp.py::_fwd_kernel"),
         fused_entry("bwd", "brax_tpu/training/fused_mlp.py:247",

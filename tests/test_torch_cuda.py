@@ -1766,3 +1766,86 @@ def test_chain_raises_on_unsupported_system_and_mixed_inputs(cuda):
     soa = lambda x: x.reshape(32, -1).t().contiguous()
     with pytest.raises(ValueError, match="one CUDA device"):
         step_t((soa(q), soa(qd), soa(minv)), soa(act).cpu())
+
+
+BIGGYM_SCENES = ("race_proant_ant", "chase_proant_ant", "sumo_proant_ant",
+                 "match_race_ma__ant_ant__proant_ant", "match_sumo__ant_ant__proant_ant",
+                 "match_onigokko_prey__proant_ant__ant_ant")
+
+
+@pytest.fixture(scope="module")
+def biggym_states():
+    """{scene: (env, {state: (qp, act)})} of biggym's new Systems at 4096 envs
+    (pbd_parity.biggym_states, seed 0), their kernels and one-pass kernels
+    built together."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel runs only there")
+    from brax_torch.tools import pbd_parity as pp
+
+    assert pp.BIGGYM_SCENES == BIGGYM_SCENES
+    envs_ = {name: pp.biggym_env(name, 4096, "cuda") for name in BIGGYM_SCENES}
+    cuda_build.build(*(kernels.kernel_source(s) for e in envs_.values()
+                       for s in (e.sys, pp.one_pass(e.sys))))
+    return {name: (e, pp.biggym_states(e, 4096, 0, "cuda")) for name, e in envs_.items()}
+
+
+@pytest.mark.parametrize("name", BIGGYM_SCENES)
+def test_biggym_kernel_matches_twin_by_its_rules(cuda, biggym_states, name):
+    """Each new biggym System (one warp for race_proant_ant's 18 contact
+    points, the wide route past it: 64 lanes for the pro-ant chase, 128 for
+    73 and 117 contact points) against the twin at 4096 envs from a reset
+    and 10 twin steps after it, over one pass and the whole step, by the
+    rule pbd_parity.RULES names (chip_smoke.py's check); two launches a
+    state."""
+    from brax_torch.tools import pbd_parity as pp
+
+    env, states = biggym_states[name]
+    p = kernels.plan(env.sys)
+    assert p.lanes == {"race_proant_ant": 32, "chase_proant_ant": 64}.get(name, 128)
+    assert p.wide == (p.lanes > 32)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for state, (qp, act) in states.items():
+        before = kernels.pbd_step_launch.launches
+        pp.hold_capcap(name, state, env.sys, qp, act, gen, f"{name} {state} ")
+        assert kernels.pbd_step_launch.launches == before + 2
+
+
+def test_biggym_env_step_launches_the_kernel_once(cuda):
+    """Every biggym scene through biggym.create at 64 envs: one PBD launch a
+    step, finite observations and rewards, a (64, 2) reward on the
+    two-agent and match scenes."""
+    from brax_torch.tools import pbd_parity as pp
+
+    biggym = pp.biggym_registry()
+    assert len(biggym.ENVS) == 12
+    for scene in biggym.ENVS:
+        env = biggym.create(scene, batch_size=64, device=cuda)
+        state = env.reset(torch.Generator(device=cuda).manual_seed(0))
+        before = kernels.pbd_step_launch.launches
+        for _ in range(3):
+            state = env.step(state, torch.rand((64, env.action_size), device=cuda) * 2 - 1)
+        assert kernels.pbd_step_launch.launches == before + 3, scene
+        two = scene.startswith(("match_", "chase_", "sumo_"))
+        assert state.reward.shape == ((64, 2) if two else (64,)), scene
+        assert bool(torch.isfinite(state.obs).all()) and bool(torch.isfinite(state.reward).all())
+
+
+def test_es_and_ars_launch_exactly(cuda):
+    """ES (4 members, 8 envs) and ARS (4 directions, 8 envs) on v1 ant,
+    episodes of 10 steps: two epochs (num_timesteps one past an epoch's
+    steps) and one eval of 8 envs, one PBD launch an env step and no fused
+    MLP launch; finite scores; the params moved."""
+    from brax_torch.training.agents.ars import train as ars
+    from brax_torch.training.agents.es import train as es
+
+    small = dict(episode_length=10, num_eval_envs=8, seed=0, device=cuda)
+    (_, params, metrics), got = _counted(lambda: es.train(
+        "ant", num_timesteps=81, population_size=4, **small))
+    assert got == (0, 0, 30)
+    assert math.isfinite(metrics["training/eval_scores_mean"])
+    assert all(bool(torch.isfinite(v).all()) for v in params[1].values())
+    (_, params, metrics), got = _counted(lambda: ars.train(
+        "ant", num_timesteps=81, number_of_directions=4, top_directions=2, **small))
+    assert got == (0, 0, 30)
+    assert math.isfinite(metrics["training/eval_scores_mean"])
+    assert bool((params[1] != 0).any()) and bool(torch.isfinite(params[1]).all())
