@@ -12,9 +12,12 @@ of training, and writes the curve to `<logdir>/curve.csv` as `steps,reward`
 lines.  `--num_timesteps` scales a run down for a smoke test.  The recipe's
 evaluations run every 1.25M env steps (at least 2), as the root script's.
 
-The root script also saves the trained params and an HTML rollout; those
-wait for the port's io slice (ROADMAP.md queue A item 10), and this tool
-writes neither.
+As the root script does, it then saves the trained params as
+`<logdir>/<env>_params.pkl` (`brax_torch.io.model`) and renders a
+rollout of the deterministic policy from one env's reset (a generator
+seeded 0), 500 steps or an episode if that is shorter, as
+`<logdir>/<env>_rollout.html` (`brax_torch.io.html`), through the
+learner CLI's rollout (on CUDA the policy runs on the fused MLP kernels).
 """
 
 from __future__ import annotations
@@ -24,8 +27,15 @@ import os
 import time
 from typing import List, Optional
 
-from brax_torch import cuda_build
+import torch
+
+from brax_torch import cuda_build, envs
+from brax_torch.io import html, model
+from brax_torch.training import learner
 from brax_torch.training.agents.ppo import train as ppo
+from brax_torch.v2.base import map_tensors
+
+ROLLOUT_STEPS = 500
 
 
 def recipe(args: argparse.Namespace) -> dict:
@@ -76,12 +86,26 @@ def main(argv: Optional[List[str]] = None, **overrides) -> dict:
         print(f"steps {num_steps:>12,}  reward {curve[-1][1]:10.1f}", flush=True)
 
     kwargs = {**recipe(args), **overrides}
-    _, _, metrics = ppo.train(args.env, progress_fn=progress, device=args.device, **kwargs)
+    make_policy, params, metrics = ppo.train(args.env, progress_fn=progress, device=args.device,
+                                             **kwargs)
 
     print(f"time to first training step: {times[1] - times[0]:.1f} s")
     print(f"time to train: {times[-1] - times[1]:.1f} s")
+    model.save_params(os.path.join(args.logdir, f"{args.env}_params.pkl"), params)
     with open(os.path.join(args.logdir, "curve.csv"), "w") as f:
         f.writelines(f"{s},{r}\n" for s, r in curve)
+
+    # render an evaluation rollout
+    device = torch.device(args.device)
+    eval_env = envs.create(args.env, episode_length=None, auto_reset=False, batch_size=1,
+                           device=device)
+    generator = torch.Generator(device=device).manual_seed(0)
+    qps = learner.rollout(eval_env, make_policy(params, deterministic=True), generator,
+                          min(ROLLOUT_STEPS, kwargs["episode_length"]),
+                          lambda state: map_tensors(lambda x: x[0], state.qp), until_done=False)
+    html.save_html(os.path.join(args.logdir, f"{args.env}_rollout.html"),
+                   eval_env.unwrapped.art.config, qps)
+    print(f"artifacts saved to {args.logdir}")
     return metrics
 
 

@@ -1,12 +1,12 @@
 """PPO ant's time to reward on one device.
 
     python -m brax_torch.tools.time_to_solve [--threshold 6000] [--num_timesteps 20000000]
-        [--num_evals 40] [--env ant] [--device cuda]
+        [--num_evals 40] [--env ant] [--seed 0] [--device cuda]
 
 Counterpart of the root `tools/time_to_solve.py`: trains `--env` with
 PPO at its published recipe (`braxlines.defaults.get_ppo_params`; ant's
 for an env without one) for `--num_timesteps` env steps with
-`--num_evals` evaluations (seed 0), prints each evaluation as it comes
+`--num_evals` evaluations (seed `--seed`), prints each evaluation as it comes
 (step, eval reward, seconds since the first training step), then one `CURVE {...}` JSON line (the whole curve)
 and, last, one `RESULT {...}` JSON line: the threshold, whether an eval
 reward reached it (`solved`), the env step and the wall-clock of the first
@@ -38,6 +38,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--num_timesteps", type=int, default=20_000_000)
     parser.add_argument("--num_evals", type=int, default=40)
     parser.add_argument("--env", default="ant")
+    parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda")
     return parser.parse_args(argv)
 
@@ -47,7 +48,7 @@ def main(argv: Optional[List[str]] = None, **overrides) -> dict:
     test cuts the recipe's widths with them).  Returns the RESULT record."""
     args = parse_args(argv)
     cfg = dict(get_ppo_params(args.env, num_timesteps=args.num_timesteps),
-               num_evals=args.num_evals, device=args.device)
+               num_evals=args.num_evals, seed=args.seed, device=args.device)
     cfg.update(overrides)
     card = cuda_build.card() if args.device.startswith("cuda") else "cpu"
     print(f"ppo {args.env} to reward >= {args.threshold} on {card}: "
@@ -71,7 +72,7 @@ def main(argv: Optional[List[str]] = None, **overrides) -> dict:
     ppo.train(args.env, progress_fn=progress, **cfg)
 
     solve = next((e for e in events if e["reward"] >= args.threshold), None)
-    print("CURVE " + json.dumps({"env": args.env, "card": card,
+    print("CURVE " + json.dumps({"env": args.env, "seed": args.seed, "card": card,
                                  "curve": [[e["step"], e["reward"], e["seconds"]]
                                            for e in events]}))
     out = {
@@ -84,6 +85,7 @@ def main(argv: Optional[List[str]] = None, **overrides) -> dict:
         "setup_s": clock.get("first_training_step", start) - start,
         "num_timesteps": cfg["num_timesteps"],
         "env": args.env,
+        "seed": args.seed,
         "card": card,
     }
     print("RESULT " + json.dumps(out))

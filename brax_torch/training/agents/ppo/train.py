@@ -25,6 +25,16 @@ generator)`; then `reward_relabel_fn(extra_params, transitions)` replaces
 the batch's rewards.  With no hook given the trainer draws and computes
 what it did without them.
 
+Full-state checkpoints (`training/checkpoint.py`), as the JAX trainer's:
+with `checkpoint_dir`, after each evaluation but the step-0 one the policy
+and value params, the Adam state, the normaliser, the env-step counter and
+the training and eval generators' states go to
+`<checkpoint_dir>/step_<env steps:012d>`; a run resumes from
+`restore_checkpoint_path`, or else from the newest `step_*` in
+`checkpoint_dir` (the auxiliary learner's params and Adam state too).  A
+resumed run resets its envs and trains `num_timesteps` more, its step
+counter going on from the checkpoint's.
+
 Each training step (ending in a device synchronise), its rollout and its
 SGD epochs, and each evaluation are `torch.profiler.record_function` ranges
 ("ppo/training_step", "ppo/rollout", "ppo/sgd", "ppo/eval"), which cost
@@ -43,7 +53,8 @@ from torch.profiler import record_function
 
 from brax_torch import envs
 from brax_torch.envs import wrappers
-from brax_torch.training import acting, fused_mlp, gradients, running_statistics, types
+from brax_torch.training import (acting, checkpoint, fused_mlp, gradients, running_statistics,
+                                 types)
 from brax_torch.training.agents.ppo import losses as ppo_losses
 from brax_torch.training.agents.ppo import networks as ppo_networks
 
@@ -79,6 +90,8 @@ def train(
     extra_loss_fn: Optional[Callable] = None,
     extra_learning_rate: float = 3e-4,
     reward_relabel_fn: Optional[Callable] = None,
+    checkpoint_dir: Optional[str] = None,
+    restore_checkpoint_path: Optional[str] = None,
 ):
     """PPO training; returns (make_policy, params, metrics).
 
@@ -138,13 +151,24 @@ def train(
         update_fn = gradients.gradient_update_fn(loss_fn, optimizer, has_aux=True)
         normalizer_params = running_statistics.init_state((env.observation_size,), device=device)
         extra_update_fn = None
+        ckpt_params = {"policy": params.policy, "value": params.value}
+        ckpt_optimizers = {"ppo": optimizer}
         if extra_loss_fn is not None:
             extra_params = types.tree_map(
                 lambda x: x.detach().clone().to(device).requires_grad_(True), extra_params)
             leaves = []
             types.tree_map(leaves.append, extra_params)
-            extra_update_fn = gradients.gradient_update_fn(
-                extra_loss_fn, gradients.adam(leaves, extra_learning_rate))
+            extra_optimizer = gradients.adam(leaves, extra_learning_rate)
+            extra_update_fn = gradients.gradient_update_fn(extra_loss_fn, extra_optimizer)
+            ckpt_params["extra"] = {str(i): leaf for i, leaf in enumerate(leaves)}
+            ckpt_optimizers["extra"] = extra_optimizer
+        ckpt_generators = {"train": gen_train, "eval": gen_eval}
+        current_step = 0
+        restore_from = checkpoint.restore_path(checkpoint_dir, restore_checkpoint_path)
+        if restore_from:
+            normalizer_params, current_step = checkpoint.restore(
+                checkpoint.load(restore_from), ckpt_params, ckpt_optimizers, ckpt_generators,
+                device)
 
         def training_step(env_state, normalizer_params, loss_metrics):
             policy = make_policy((normalizer_params, params.policy))
@@ -193,7 +217,6 @@ def train(
             metrics = evaluator.run_evaluation(policy_params(), training_metrics={})
             progress_fn(0, metrics)
 
-        current_step = 0
         training_walltime = 0.0
         for _ in range(num_evals_after_init):
             acting.sync(device)
@@ -224,6 +247,10 @@ def train(
             with record_function("ppo/eval"):
                 metrics = evaluator.run_evaluation(policy_params(), training_metrics)
             progress_fn(current_step, metrics)
+            if checkpoint_dir:
+                checkpoint.save(checkpoint_dir, checkpoint.state(
+                    current_step, ckpt_params, ckpt_optimizers, normalizer_params,
+                    ckpt_generators))
 
         assert current_step >= num_timesteps
         params_out = policy_params()

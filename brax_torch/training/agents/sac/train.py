@@ -20,10 +20,20 @@ for the port's PPO; `envs.wrappers.wrap_for_training_any` wraps either.
 `use_fused_kernel=None` turns the fused MLP kernels on when `device` is
 CUDA (the critics' first layer takes obs and action together: humanoid's
 257 inputs), and the previous setting is restored on return.  Physics runs
-through its kernels on CUDA tensors whatever this flag says.  The JAX
-trainer's checkpoint arguments wait for checkpointing (ROADMAP queue A
-item 10) and raise NotImplementedError; `mesh` and `aot_cache` have no
-counterpart.
+through its kernels on CUDA tensors whatever this flag says.  `mesh` and
+`aot_cache` have no counterpart.
+
+Checkpoints, as the JAX trainer's: `checkpoint_logdir` saves (normaliser,
+policy params) through `io.model` as `<checkpoint_logdir>_sac_<env
+steps>.pkl` after each training epoch; with `checkpoint_dir` the full
+learner state (`training/checkpoint.py`: the policy, critic and target
+critic params, log alpha, the three Adam states, the normaliser, the
+env-step counter and the acting, SGD and eval generators' states) goes to
+`<checkpoint_dir>/step_<env steps:012d>` beside it.  A run resumes from
+`restore_checkpoint_path`, or else from the newest `step_*` in
+`checkpoint_dir`.  The replay buffer is not saved, as in JAX: a resumed
+run refills it through the prefill, its step counter going on from the
+checkpoint's.
 
 The prefill, each training step (ending in a device synchronise), its SGD
 steps and each evaluation are `torch.profiler.record_function` ranges
@@ -43,8 +53,9 @@ from torch.profiler import record_function
 
 from brax_torch import envs
 from brax_torch.envs import wrappers
-from brax_torch.training import (acting, fused_mlp, gradients, replay_buffers, running_statistics,
-                                 types)
+from brax_torch.io import model
+from brax_torch.training import (acting, checkpoint, fused_mlp, gradients, replay_buffers,
+                                 running_statistics, types)
 from brax_torch.training.agents.sac import losses as sac_losses
 from brax_torch.training.agents.sac import networks as sac_networks
 
@@ -152,10 +163,6 @@ def train(
     over the last epoch's training steps after its first (host clock around
     synchronised steps), when the epoch has more than one.
     """
-    if checkpoint_logdir or checkpoint_dir or restore_checkpoint_path:
-        raise NotImplementedError(
-            "SAC checkpoints (checkpoint_logdir, checkpoint_dir, restore_checkpoint_path) wait "
-            "for checkpointing, ROADMAP queue A item 10")
     if min_replay_size >= num_timesteps:
         raise ValueError("no training would happen: min_replay_size >= num_timesteps")
     if max_replay_size is None:
@@ -197,6 +204,17 @@ def train(
         ts = init_training_state(sac_network.policy_network.init(gen_policy),
                                  sac_network.q_network.init(gen_q), learning_rate)
         normalizer_params = running_statistics.init_state((obs_size,), device=device)
+        ckpt_params = {"policy": ts.policy_params, "q": ts.q_params,
+                       "target_q": ts.target_q_params, "alpha": {"log_alpha": ts.log_alpha}}
+        ckpt_optimizers = {"policy": ts.policy_optimizer, "q": ts.q_optimizer,
+                           "alpha": ts.alpha_optimizer}
+        ckpt_generators = {"act": gen_act, "sgd": gen_sgd, "eval": gen_eval}
+        env_steps = 0
+        restore_from = checkpoint.restore_path(checkpoint_dir, restore_checkpoint_path)
+        if restore_from:
+            normalizer_params, env_steps = checkpoint.restore(
+                checkpoint.load(restore_from), ckpt_params, ckpt_optimizers, ckpt_generators,
+                device)
 
         replay_buffer = replay_buffers.UniformSamplingQueue(
             max_replay_size=max_replay_size,
@@ -248,7 +266,6 @@ def train(
                 metrics = evaluator.run_evaluation(current_params(), training_metrics={})
             progress_fn(0, metrics)
 
-        env_steps = 0
         acting.sync(device)
         t = time.time()
         with record_function("sac/prefill"):
@@ -286,6 +303,11 @@ def train(
                 training_metrics["training/sps_after_first"] = (
                     (len(step_ends) - 1) * env_steps_per_actor_step
                     / (step_ends[-1] - step_ends[0]))
+            if checkpoint_logdir:
+                model.save_params(f"{checkpoint_logdir}_sac_{env_steps}.pkl", current_params())
+            if checkpoint_dir:
+                checkpoint.save(checkpoint_dir, checkpoint.state(
+                    env_steps, ckpt_params, ckpt_optimizers, normalizer_params, ckpt_generators))
             with record_function("sac/eval"):
                 metrics = evaluator.run_evaluation(current_params(), training_metrics)
             progress_fn(env_steps, metrics)

@@ -315,6 +315,11 @@ def _setup(lib, path) -> None:
 _LIBRARY = cuda_build.Library(SOURCE, _setup)
 
 
+def library() -> cuda_build.Library:
+    """The kernels' library (built and loaded at first use)."""
+    return _LIBRARY
+
+
 def ptxas_report() -> str:
     """nvcc's ptxas output for the loaded kernels (registers, spills)."""
     return _LIBRARY.ptxas_report()

@@ -166,8 +166,9 @@
    each, finite observations, a (N, 2) reward on the two-agent and match
    scenes; the kernel's timings, bound and plain version per new System;
    then ES (population 128, 256 envs) and ARS (60 directions, 120 envs,
-   top 20) on v1 ant at their defaults (episodes of 1000 steps): two epochs
-   and one eval of 128 envs each, exactly 3000 PBD launches and no fused
+   top 20) on v1 ant at their defaults but for episodes of EPISODE steps:
+   two epochs and one eval of 128 envs each, exactly 3 x EPISODE PBD
+   launches and no fused
    MLP launch, finite scores, moved params, env-steps/s, and one profiled
    epoch of 50-step episodes and its eval (the device's kernels, busy
    share);
@@ -235,6 +236,22 @@
    env-steps/s, host seconds of the prefill, training steps and eval, peak
    memory, a profile of one humanoid training step, and a {"sac": ...}
    line;
+15d. the learner CLI (`brax_torch.training.learner.main`, in-process): PPO
+   on v1 ant at the ant recipe, full width, for LEARNER_STEPS training
+   steps, 2 evaluations of 128 envs and one rollout at batch 1 (a page and
+   an npy trajectory), with exact PBD and fused launch counts (the training
+   steps', the evaluations', one of each a rollout step); the params file
+   loaded back acting as the trained policy bit for bit on a fixed
+   observation batch; the page's JSON, the npy's (steps, bodies, 3) shape
+   and the event file's eval scalars at the eval steps, read with the
+   port's own reader (brax_torch.io.metrics); the CLI on the v2 ant for
+   LEARNER_V2_STEPS training step, an evaluation and a page, with exact
+   gen_step and fused launches; then ppo.train at the ant recipe and
+   sac.train at the humanoid recipe (cut to its prefill and RESUME_STEPS
+   training steps) each run twice on one checkpoint_dir: the second run
+   resumes past the first, and its state right after the restore (Adam,
+   the normaliser, the params, the generators) equals the checkpoint bit
+   for bit; SAC's checkpoint_logdir pickles load; a {"learner": ...} line;
 16. reads the launch-overhead probe's counts, set to 0 before step 3, to
    show that no env or PPO path ran its kernels; holds them
    (brax_torch/csrc/probe.cu) against their plain versions, counts the
@@ -255,13 +272,19 @@ launch is printed: ptxas's registers, stack and spills, shared memory per
 env and per block, envs per block, resident blocks per SM and waves at
 4096 envs and at PPO's batch.  Each gen_step parity check also counts the
 envs whose outputs are bit-identical to the plain version's.
+Every trainer's run but the learner CLI's v1 run has episodes of EPISODE
+(100) steps, its evaluation among them, and the profiles' records are
+read raw (profiler_records): both are host time that the script's time
+limit does not leave room for.
 It fails, printing no result, without a CUDA device.  Imports nothing of
 JAX.
 """
 
 import json
+import os
 import re
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -290,7 +313,10 @@ from brax_torch.tools.pbd_parity import (BIGGYM_SCENES, COMPOSER_SCENES, COMPOSE
                                          fingertips_on_ball, force_scene_states, grasp_states,
                                          hold_capcap, max_errors, octopus_states, one_pass,
                                          spring_env, spring_states, twister_swimmer)
-from brax_torch.training import fused_mlp
+from brax_torch.io import metrics as io_metrics
+from brax_torch.io import model as io_model
+from brax_torch.io import npy_file
+from brax_torch.training import checkpoint, fused_mlp, learner
 from brax_torch.training.agents.apg import networks as apg_networks
 from brax_torch.training.agents.apg import train as apg
 from brax_torch.training.agents.ars import train as ars
@@ -449,8 +475,9 @@ APG_RECIPE = dict(learning_rate=5e-4, max_gradient_norm=1e9, normalize_observati
 APG_GRAD_STEPS = 4
 # SAC: tools/run_curves.py's SAC recipes (SAC_CONFIGS and SAC_COMMON, copied:
 # the port imports nothing of tools/), each main path cut only in
-# num_timesteps (the prefill and SAC_TRAINING_STEPS training steps) and
-# num_evals (1: one evaluation, at the end); the v2 ant runs the halfcheetah
+# num_timesteps (the prefill and SAC_TRAINING_STEPS training steps),
+# num_evals (1: one evaluation, at the end) and episode_length (EPISODE,
+# run_sac: past the prefill and training steps); the v2 ant runs the halfcheetah
 # recipe for 2 training steps (gen_step under SAC)
 SAC_RECIPES = {
     "humanoid": dict(num_timesteps=5 * 1048576, reward_scaling=10.0, discounting=0.99,
@@ -495,9 +522,7 @@ COMPOSER_TIMED = ("pro_ant_run", "ant_push", "ant_on_ball", "halfcheetah_run", "
 COMPOSER_HELD = COMPOSER_WIDE + (OCTOPUS,)
 # MAPPO on the 2-agent ant chase and DIAYN on v1 ant, training steps each
 MAPPO_STEPS = 2
-POP_EPISODE = 1000  # ES's and ARS's default episode_length
-# the profiled epoch's episodes: the profiler reads ~220 kernels a step at
-# ~0.2 ms each, 90 s for an epoch and eval of 1000 steps
+# the profiled epoch's episodes
 POP_PROFILE_EPISODE = 50
 DIAYN_STEPS = 2
 COMPOSER_STEPS = 50
@@ -514,6 +539,12 @@ CHAIN_STEPS = 50
 # (every scene is on the ground, in contact, from its reset)
 COMPOSER_SETTLE = 3
 PROFILE_EPISODE = 10
+# the episodes of every trainer's run but the learner CLI's v1 run (PPO's,
+# MAPPO's, DIAYN's, SAC's, ES's and ARS's: their evaluations, auto-resets
+# and ES's and ARS's epochs), cut from the recipes' 1000 steps: an
+# evaluation's steps are the host's (5-9 ms a step at 128 envs on an H100's
+# host), ~100 s of the script at 1000
+EPISODE = 100
 DEVICE = torch.device("cuda")
 
 
@@ -529,6 +560,53 @@ def cuda_ms(fn, reps, warmup):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profiler_records(prof):
+    """A finished torch.profiler.profile's records, read from its raw
+    (kineto) results as (name, on the device, start us, end us, thread, a
+    record_function range) tuples.  Building torch's own event tree
+    (prof.events(), key_averages()) costs ~0.2 ms a record on the card's
+    host: 40 s for the ~200k records of one PPO training step."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.device_type() == cuda, e.start_ns() / 1e3,
+             (e.start_ns() + e.duration_ns()) / 1e3, e.start_thread_id(),
+             getattr(e, "is_user_annotation", lambda: False)())
+            for e in prof.profiler.kineto_results.events()]
+
+
+def device_work(records, t0=-float("inf"), t1=float("inf")):
+    """{name: (count, us)} of the device's kernels and copies that start in
+    [t0, t1] us: not the host's record_function ranges, which the profiler
+    mirrors on the device's timeline under their names.  (A kernel's name
+    may hold "/" or "#": PyTorch's elementwise kernels' "{lambda(int)#1}".)"""
+    ranges = {r[0] for r in records if not r[1] and r[5]}
+    by_name = {}
+    for name, on_device, start, end, _, annotation in records:
+        if on_device and not annotation and name not in ranges and t0 <= start <= t1:
+            n, us = by_name.get(name, (0, 0.0))
+            by_name[name] = (n + 1, us + end - start)
+    return by_name
+
+
+def host_self_us(records, t0, t1):
+    """{name: (count, self us)} of the host's ops (not its ranges) that
+    start in [t0, t1] us: each op's time less that of the records nested in
+    it on its thread, as torch's event tree counts self time."""
+    host = sorted((r for r in records if not r[1]), key=lambda r: (r[4], r[2], -r[3]))
+    self_us, stack = [r[3] - r[2] for r in host], []
+    for i, (_, _, start, end, thread, _) in enumerate(host):
+        while stack and (host[stack[-1]][4] != thread or host[stack[-1]][3] <= start):
+            stack.pop()
+        if stack:
+            self_us[stack[-1]] -= end - start
+        stack.append(i)
+    by_name = {}
+    for (name, _, start, _, _, annotation), us in zip(host, self_us):
+        if not annotation and t0 <= start <= t1:
+            n, total = by_name.get(name, (0, 0.0))
+            by_name[name] = (n + 1, total + us)
+    return by_name
 
 
 class OpCount(TorchDispatchMode):
@@ -588,17 +666,14 @@ def profile_env_step(tag, label, env, state, act_gen, steps=20):
             act = torch.rand((n, env.action_size), generator=act_gen, device=DEVICE) * 2 - 1
             state = env.step(state, act)
         torch.cuda.synchronize()
-    device_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(
-        e, "self_cuda_time_total", 0)
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    rec = {"device_us_per_step": sum(device_us(e) for e in events) / steps,
-           "kernels_per_step": sum(e.count for e in events) / steps}
+    work = device_work(profiler_records(prof))
+    rec = {"device_us_per_step": sum(us for _, us in work.values()) / steps,
+           "kernels_per_step": sum(n for n, _ in work.values()) / steps}
     if rec["device_us_per_step"]:
         print(f"profile {tag}: {steps} {label} env.step calls, {rec['device_us_per_step']:.1f} "
               f"us device time and {rec['kernels_per_step']:.0f} kernels per step")
-        for e in sorted(events, key=lambda e: -device_us(e))[:6]:
-            print(f"  {device_us(e) / steps:9.1f} us/step  {e.count / steps:6.2f}/step  "
-                  f"{e.key[:90]}")
+        for name, (n, us) in sorted(work.items(), key=lambda kv: -kv[1][1])[:6]:
+            print(f"  {us / steps:9.1f} us/step  {n / steps:6.2f}/step  {name[:90]}")
     else:
         print(f"profile: {label} env.step: no device time recorded (not measured)")
     return state, rec
@@ -1085,8 +1160,9 @@ def time_chain(name, rows, bf16, activation="swish"):
 # ---------------------------------------------------------------------------
 
 
-def recipe(name="ant"):
-    return dict(DEFAULT_PPO_PARAMS[name])
+def recipe(name="ant", cut=True):
+    """DEFAULT_PPO_PARAMS[name], its episodes cut to EPISODE steps if `cut`."""
+    return dict(DEFAULT_PPO_PARAMS[name], **({"episode_length": EPISODE} if cut else {}))
 
 
 def env_steps_per_training_step(p):
@@ -1179,8 +1255,8 @@ def profile_training_step(fused, environment="ant", preset="ant", run=None, pref
     synchronise), and the host time of its rollout and SGD ranges; or of
     the last "{prefix}/training_step" of `run()` and its `parts`' ranges.
     `chip_smoke.py` profiles one step (steps=1: its process has run the
-    recipe's PPO before, so nothing is built or first-called in it; the
-    profiler reads a step's ~200k events at ~0.2 ms each).
+    recipe's PPO before, so nothing is built or first-called in it; its
+    ~200k records are read raw, profiler_records).
 
     The episode is cut to PROFILE_EPISODE steps so that the run's one
     evaluation stays short; a training step does the same work at any
@@ -1193,33 +1269,19 @@ def profile_training_step(fused, environment="ant", preset="ant", run=None, pref
                     episode_length=PROFILE_EPISODE)
         else:
             run()
-    events = prof.events()
-    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    ranges = lambda name: sorted((e for e in events if e.name == name and e.device_type == cpu),
-                                 key=lambda e: e.time_range.start)
+    records = profiler_records(prof)
+    ranges = lambda name: sorted((r for r in records if r[0] == name and not r[1]),
+                                 key=lambda r: r[2])
     step = ranges(f"{prefix}/training_step")[-1]
-    t0, t1 = step.time_range.start, step.time_range.end
-    inside = lambda e: t0 <= e.time_range.start <= t1
-    # the profiler mirrors each record_function range (ours, the optimizer's)
-    # on the device timeline: those are not device work
-    ops = [e for e in events if e.device_type == cuda and inside(e)
-           and not getattr(e, "is_user_annotation", False) and "/" not in e.name
-           and "#" not in e.name]
-    by_name = {}
-    for e in ops:
-        n, us = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    host = {part: sum(e.time_range.elapsed_us() for e in ranges(f"{prefix}/{part}") if inside(e))
+    t0, t1 = step[2], step[3]
+    by_name = device_work(records, t0, t1)
+    host = {part: sum(r[3] - r[2] for r in ranges(f"{prefix}/{part}") if t0 <= r[2] <= t1)
             for part in parts}
-    host_by_name = {}
-    for e in events:
-        if e.device_type == cpu and inside(e) and not getattr(e, "is_user_annotation", False):
-            n, us = host_by_name.get(e.name, (0, 0.0))
-            host_by_name[e.name] = (n + 1, us + e.self_cpu_time_total)
+    host_by_name = host_self_us(records, t0, t1)
     return {
         "step_us": t1 - t0,
         "device_us": sum(us for _, us in by_name.values()),
-        "device_ops": len(ops),
+        "device_ops": sum(n for n, _ in by_name.values()),
         "host_us": host,
         "top": sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8],
         "host_top": sorted(host_by_name.items(), key=lambda kv: -kv[1][1])[:8],
@@ -1293,8 +1355,7 @@ def humanoid_paths(tag, phase, h_envs, checks, fused_plans, times, bounds):
         h_sys, qp, act = r["sys"], r["qp"], r["act"]
         b = pbd_bound(h_sys, qp, act)
         r["bound"] = dict(zip(("bound_ms", "bound_by", "ops", "bytes"), b[:4]))
-        r["plain_ms"] = cuda_ms(lambda: kernels.pbd_step_plain(h_sys, qp, act), reps=10,
-                                warmup=2)
+        r["plain_ms"] = cuda_ms(lambda: kernels.pbd_step_plain(h_sys, qp, act), reps=1, warmup=1)
         r["ms_by_envs"] = pbd_timings(tag, h_sys, qp, act, b[0] / N_ENVS, name)
         print(f"bound {tag}: pbd_step {name} at {N_ENVS} envs: {b[3]} bytes -> {b[4]:.5f} ms at "
               f"3.35 TB/s; {b[2]} fp32 ops (the twin's, counted) -> {b[5]:.5f} ms at 67 "
@@ -1428,8 +1489,7 @@ def capcap_paths(tag, phase, c_envs, checks, fused_plans, times, bounds):
         c_sys, qp, act = r["sys"], r["qp"], r["act"]
         b = pbd_bound(c_sys, qp, act)
         r["bound"] = dict(zip(("bound_ms", "bound_by", "ops", "bytes"), b[:4]))
-        r["plain_ms"] = cuda_ms(lambda: kernels.pbd_step_plain(c_sys, qp, act), reps=5,
-                                warmup=1)
+        r["plain_ms"] = cuda_ms(lambda: kernels.pbd_step_plain(c_sys, qp, act), reps=1, warmup=1)
         r["ms_by_envs"] = pbd_timings(tag, c_sys, qp, act, b[0] / N_ENVS, CAPCAP_LABEL[name])
         print(f"bound {tag}: pbd_step {CAPCAP_LABEL[name]} at {N_ENVS} envs: {b[3]} bytes -> "
               f"{b[4]:.5f} ms at 3.35 TB/s; {b[2]} fp32 ops (the twin's, counted) -> "
@@ -1557,8 +1617,7 @@ def force_paths(tag, phase, f_envs):
         f_sys, qp, act = r["sys"], r["qp"], r["act"]
         b = pbd_bound(f_sys, qp, act)
         r["bound"] = dict(zip(("bound_ms", "bound_by", "ops", "bytes"), b[:4]))
-        r["plain_ms"] = cuda_ms(lambda: kernels.pbd_step_plain(f_sys, qp, act), reps=5,
-                                warmup=1)
+        r["plain_ms"] = cuda_ms(lambda: kernels.pbd_step_plain(f_sys, qp, act), reps=1, warmup=1)
         r["ms_by_envs"] = pbd_timings(tag, f_sys, qp, act, b[0] / N_ENVS, name)
         print(f"bound {tag}: pbd_step {name} at {N_ENVS} envs: {b[3]} bytes -> {b[4]:.5f} ms at "
               f"3.35 TB/s; {b[2]} fp32 ops (the twin's, counted) -> {b[5]:.5f} ms at 67 "
@@ -1571,7 +1630,7 @@ def force_paths(tag, phase, f_envs):
                   "fused_mlp_fwd": rollout_r + 3 * sgd_r, "fused_mlp_bwd": 2 * sgd_r}
     if per_step_r != {"pbd_step": 800, "fused_mlp_fwd": 968, "fused_mlp_bwd": 512}:
         raise AssertionError(f"reacher recipe launches per training step {per_step_r}")
-    if (env_steps_per_training_step(p_r), eval_r) != (1_638_400, 250):
+    if (env_steps_per_training_step(p_r), eval_r) != (1_638_400, EPISODE // 4):
         raise AssertionError(f"reacher recipe env steps per training step "
                              f"{env_steps_per_training_step(p_r)}, eval steps {eval_r}")
     want_r = dict(zip(("fused_mlp_fwd", "fused_mlp_bwd", "pbd_step"),
@@ -1670,7 +1729,7 @@ def grasp_paths(tag, phase, g_envs, checks, fused_plans, times, bounds):
         sys_, qp, act = r["sys"], r["qp"], r["act"]
         b = pbd_bound(sys_, qp, act)
         r["bound"] = dict(zip(("bound_ms", "bound_by", "ops", "bytes"), b[:4]))
-        r["plain_ms"] = cuda_ms(lambda: kernels.pbd_step_plain(sys_, qp, act), reps=5, warmup=1)
+        r["plain_ms"] = cuda_ms(lambda: kernels.pbd_step_plain(sys_, qp, act), reps=1, warmup=1)
         r["ms_by_envs"] = pbd_timings(tag, sys_, qp, act, b[0] / N_ENVS, name)
         print(f"bound {tag}: pbd_step {name} at {N_ENVS} envs: {b[3]} bytes -> {b[4]:.5f} ms at "
               f"3.35 TB/s; {b[2]} fp32 ops (the twin's, counted) -> {b[5]:.5f} ms at 67 "
@@ -1800,7 +1859,7 @@ def fetch_paths(tag, phase, b_envs, checks, fused_plans, times, bounds):
         sys_, qp, act = r["sys"], r["qp"], r["act"]
         b = pbd_bound(sys_, qp, act)
         r["bound"] = dict(zip(("bound_ms", "bound_by", "ops", "bytes"), b[:4]))
-        r["plain_ms"] = cuda_ms(lambda: kernels.pbd_step_plain(sys_, qp, act), reps=5, warmup=1)
+        r["plain_ms"] = cuda_ms(lambda: kernels.pbd_step_plain(sys_, qp, act), reps=1, warmup=1)
         r["ms_by_envs"] = pbd_timings(tag, sys_, qp, act, b[0] / N_ENVS, name)
         print(f"bound {tag}: pbd_step {name} at {N_ENVS} envs: {b[3]} bytes -> {b[4]:.5f} ms at "
               f"3.35 TB/s; {b[2]} fp32 ops (the twin's, counted) -> {b[5]:.5f} ms at 67 "
@@ -1963,7 +2022,7 @@ def spring_paths(tag, phase, s_envs):
         sys_, qp, act = r["sys"], r["qp"], r["act"]
         b = pbd_bound(sys_, qp, act)
         r["bound"] = dict(zip(("bound_ms", "bound_by", "ops", "bytes"), b[:4]))
-        r["plain_ms"] = cuda_ms(lambda: kernels.pbd_step_plain(sys_, qp, act), reps=5, warmup=1)
+        r["plain_ms"] = cuda_ms(lambda: kernels.pbd_step_plain(sys_, qp, act), reps=1, warmup=1)
         r["ms_by_envs"] = pbd_timings(tag, sys_, qp, act, b[0] / N_ENVS, f"{name} spring")
         print(f"bound {tag}: pbd_step {name} spring at {N_ENVS} envs: {b[3]} bytes -> "
               f"{b[4]:.5f} ms at 3.35 TB/s; {b[2]} fp32 ops (the twin's, counted) -> "
@@ -2227,7 +2286,7 @@ def run_sac(recipe_name, environment, steps, **kw):
     """sac.train at SAC_RECIPES[recipe_name] cut to the prefill and `steps`
     training steps and one evaluation (`kw` overrides more).  Returns (the
     settings, the cuts, train's result)."""
-    p = dict(SAC_RECIPES[recipe_name])
+    p = dict(SAC_RECIPES[recipe_name], episode_length=EPISODE)
     p.update(kw)
     prefill = -(-p["min_replay_size"] // p["num_envs"])
     cut = {"num_timesteps": (prefill + steps) * p["num_envs"] * p.get("action_repeat", 1),
@@ -2376,12 +2435,10 @@ def composer_main_path(tag, scene, env=None, label="composer", profiled=COMPOSER
     launches = kernels.pbd_step_launch.launches
     if launches != COMPOSER_STEPS:
         raise AssertionError(f"{COMPOSER_STEPS} {scene} env steps made {launches} launches")
-    device_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(
-        e, "self_cuda_time_total", 0)
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(device_us(e) for e in events) / profiled
-    kernels_per_step = sum(e.count for e in events) / profiled
-    pbd_us = sum(device_us(e) for e in events if "pbd_step" in e.key) / profiled
+    work = device_work(profiler_records(prof))
+    dev_us = sum(us for _, us in work.values()) / profiled
+    kernels_per_step = sum(n for n, _ in work.values()) / profiled
+    pbd_us = sum(us for name, (_, us) in work.items() if "pbd_step" in name) / profiled
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(COMPOSER_TIMED_STEPS):
@@ -2522,11 +2579,11 @@ def biggym_paths(tag, phase, bg_envs):
 
 def population_paths(tag, phase):
     """ES and ARS on v1 ant at their trainers' defaults (ES: population
-    128, 256 envs; ARS: 60 directions, 120 envs, top 20; episodes of
-    1000 steps): two epochs (num_timesteps one more than an epoch's env
-    steps: every ant lives its 1000 steps, so the second epoch ends the
-    run) and one eval of PPO_EVAL_ENVS envs each, exactly (epochs + 1) x
-    1000 PBD launches and no fused MLP launch, finite scores, the params
+    128, 256 envs; ARS: 60 directions, 120 envs, top 20) but for episodes
+    of EPISODE steps: two epochs (num_timesteps one more than an epoch's
+    env steps: every ant lives its EPISODE steps, so the second epoch ends
+    the run) and one eval of PPO_EVAL_ENVS envs each, exactly (epochs + 1)
+    x EPISODE PBD launches and no fused MLP launch, finite scores, the params
     moved; env-steps/s; then one epoch of POP_PROFILE_EPISODE-step episodes
     and its eval profiled (the device's kernels only), its device time per
     env step and busy share."""
@@ -2535,7 +2592,7 @@ def population_paths(tag, phase):
             ("ES", es, {"population_size": 128}, 256),
             ("ARS", ars, {"number_of_directions": 60, "top_directions": 20}, 120)):
         phase(f"main path: {label} on v1 ant")
-        run = dict(episode_length=POP_EPISODE, num_eval_envs=PPO_EVAL_ENVS, seed=0,
+        run = dict(episode_length=EPISODE, num_eval_envs=PPO_EVAL_ENVS, seed=0,
                    device=DEVICE, **kw)
         epochs, initial = [], {}
         real_episode = trainer.run_episode
@@ -2557,10 +2614,10 @@ def population_paths(tag, phase):
         trainer.run_episode = counting
         try:
             (make_policy, params, metrics), launches, seconds = counted(lambda: trainer.train(
-                "ant", num_timesteps=n_envs * POP_EPISODE + 1, **run))
+                "ant", num_timesteps=n_envs * EPISODE + 1, **run))
         finally:
             trainer.run_episode = real_episode
-        want = {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0, "pbd_step": (len(epochs) + 1) * POP_EPISODE}
+        want = {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0, "pbd_step": (len(epochs) + 1) * EPISODE}
         if len(epochs) != 2 or launches != want:
             raise AssertionError(f"{label}: {len(epochs)} epochs, launches {launches}, expected "
                                  f"{want}")
@@ -2576,7 +2633,7 @@ def population_paths(tag, phase):
             if not moved > 0:
                 raise AssertionError("ARS: W did not move from zero")
             moved_text = f"W moved from zero (largest entry {moved:.3e})"
-        print(f"main path {label} v1 ant: 2 epochs of {n_envs} envs x {POP_EPISODE} steps + one "
+        print(f"main path {label} v1 ant: 2 epochs of {n_envs} envs x {EPISODE} steps + one "
               f"eval of {PPO_EVAL_ENVS} envs in {seconds:.1f} s; launches {launches} (as "
               f"expected); eval_scores_mean {metrics['training/eval_scores_mean']:.5g}, "
               f"eval/episode_reward {metrics['eval/episode_reward']:.5g}; {moved_text}")
@@ -2593,15 +2650,12 @@ def population_paths(tag, phase):
             trainer.train("ant", num_timesteps=1, **run)
             torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        device_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0)
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        work = device_work(profiler_records(prof))
         steps = 2 * POP_PROFILE_EPISODE
-        dev_us = sum(device_us(e) for e in events)
-        pbd_us = sum(device_us(e) for e in events if "pbd_step" in e.key)
+        dev_us = sum(us for _, us in work.values())
+        pbd_us = sum(us for name, (_, us) in work.items() if "pbd_step" in name)
         prof_rec = {"device_us_per_step": dev_us / steps, "pbd_step_us_per_step": pbd_us / steps,
-                    "kernels_per_step": sum(e.count for e in events) / steps,
+                    "kernels_per_step": sum(n for n, _ in work.values()) / steps,
                     "wall_s": wall_s, "busy_share": dev_us / (wall_s * 1e6) if dev_us else None}
         busy = f"{prof_rec['busy_share']:.3f}" if dev_us else "not measured (no device time)"
         print(f"profile {tag}: {label} v1 ant, one epoch of {POP_PROFILE_EPISODE}-step episodes "
@@ -2610,9 +2664,8 @@ def population_paths(tag, phase):
               f"({prof_rec['pbd_step_us_per_step']:.1f} of it pbd_step), "
               f"{prof_rec['kernels_per_step']:.1f} kernels a step, {wall_s:.2f} s wall, busy "
               f"{busy}")
-        for e in sorted(events, key=lambda e: -device_us(e))[:6]:
-            print(f"  {device_us(e) / steps:9.1f} us/step  {e.count / steps:6.2f}/step  "
-                  f"{e.key[:90]}")
+        for name, (n, us) in sorted(work.items(), key=lambda kv: -kv[1][1])[:6]:
+            print(f"  {us / steps:9.1f} us/step  {n / steps:6.2f}/step  {name[:90]}")
         out[label] = {"launches": launches, "epochs": len(epochs), "seconds": seconds,
                       "env_steps_per_s": metrics["training/sps"], "metrics": metrics,
                       "moved": moved, "profile": prof_rec, "envs": n_envs}
@@ -2690,9 +2743,13 @@ def trainer_paths(tag, phase, checks):
             f"{kind} max|kernel - plain| {r['max_abs_err']:.3e} ({r['fraction_of_tolerance']:.3f} "
             f"of the tolerance)" for kind, r in c.items()))
     disc_times = time_chain("disc_diayn", batch_rows, True)
+    disc_bounds = {kind: chain_bound(TRAINER_CHAINS["disc_diayn"], batch_rows, True,
+                                     kind == "bwd") for kind in ("fwd", "bwd")}
     print(f"timing {tag}: fused_mlp disc_diayn@{batch_rows} bf16: fwd {disc_times['fwd']:.4f} ms, "
           f"bwd {disc_times['bwd']:.4f} ms graph-replayed; cuBLAS chain fwd "
-          f"{disc_times['cublas_fwd']:.4f}, bwd {disc_times['cublas_bwd']:.4f}")
+          f"{disc_times['cublas_fwd']:.4f}, bwd {disc_times['cublas_bwd']:.4f}; bound fwd "
+          f"{disc_bounds['fwd'][0]:.5f} ms by {disc_bounds['fwd'][1]}, bwd "
+          f"{disc_bounds['bwd'][0]:.5f} ms by {disc_bounds['bwd'][1]}")
 
     phase("main path: MAPPO on the 2-agent ant chase")
     q = dict(p, num_timesteps=MAPPO_STEPS * env_steps_per_training_step(p), num_evals=1)
@@ -2882,6 +2939,168 @@ def chain_paths(tag, phase, gen_sys, gen_env):
             "ops": b[2], "bytes": b[3], "turns": turns, "schema": [k for k, _ in schema]}
 
 
+# ---------------------------------------------------------------------------
+# the learner CLI (brax_torch/training/learner.py) and checkpoints
+# ---------------------------------------------------------------------------
+
+# training steps of the CLI's v1 run (2 evaluations: step 0 and the end), of
+# its v2 run (1 evaluation) and of each run of a checkpoint round trip
+LEARNER_STEPS, LEARNER_V2_STEPS, RESUME_STEPS = 2, 1, 2
+
+
+def cli_argv(p, steps, num_evals, logdir, *extra):
+    """`python -m brax_torch.training.learner`'s arguments: PPO on ant at
+    the recipe `p` for `steps` training steps."""
+    return learner.recipe_argv(p, "ant", steps, "--num_evals", str(num_evals), "--logdir", logdir,
+                               "--device", str(DEVICE), *extra)
+
+
+def cli_launches(p, steps, evals, rollout, physics):
+    """apg_counts() of a CLI run of PPO: `steps` training steps and `evals`
+    evaluations (expected_launches' counts), then a rollout of `rollout`
+    steps at batch 1, one physics launch and one policy forward a step; no
+    physics backward."""
+    r, sgd, eval_steps = launch_plan(p)
+    want = {"fused_mlp_fwd": steps * (r + 3 * sgd) + evals * eval_steps + rollout,
+            "fused_mlp_bwd": steps * 2 * sgd, "pbd_step": 0, "gen_step": 0,
+            "pbd_step_backward_runs": 0, "gen_step_backward_runs": 0}
+    want[physics] = (steps * r + evals * eval_steps) * p["action_repeat"] + rollout
+    return want
+
+
+def viewer_system(path):
+    """The scene/trajectory JSON of a viewer page, which must hold the
+    viewer."""
+    with open(path) as f:
+        page = f.read()
+    if "brax-tpu-viewer" not in page or "function mat4Identity" not in page:
+        raise AssertionError(f"{path} does not hold the viewer")
+    return json.loads(re.search(r"<script>const system = (.*);</script>", page).group(1))
+
+
+def learner_v1(tag, logdir):
+    """The CLI at the ant recipe, full width: exact launches, the params
+    file's policy acting as the trained one bit for bit, the page, the npy
+    trajectory and the event file's eval scalars.  The recipe's episodes
+    are not cut: 1000 steps."""
+    p = recipe(cut=False)
+    zero_apg_counts()
+    t0 = time.perf_counter()
+    out = learner.main(cli_argv(p, LEARNER_STEPS, 2, logdir, "--num_videos", "1",
+                                "--num_trajectories_npy", "1"))
+    launches = apg_counts()
+    seconds = time.perf_counter() - t0
+    rollout = out["rollout_steps"][0]
+    want = cli_launches(p, LEARNER_STEPS, 2, rollout, "pbd_step")
+    if launches != want:
+        raise AssertionError(f"learner v1 ant: launches {launches}, expected {want}")
+    loaded = io_model.to_device(io_model.load_params(out["params"]), DEVICE)
+    obs = torch.randn((PPO_EVAL_ENVS, 87), generator=torch.Generator(device=DEVICE).manual_seed(5),
+                      device=DEVICE)
+    with fused_mlp.enabled_as(True), torch.no_grad():
+        acts = [out["make_policy"](params, deterministic=True)(obs, None)[0]
+                for params in (out["policy_params"], loaded)]
+    if not torch.equal(*acts):
+        raise AssertionError("the saved params' policy acts otherwise than the trained one")
+    system = viewer_system(out["videos"][0])
+    qps = npy_file.load(out["trajectories"][0])
+    bodies = len(system["config"]["bodies"])
+    if len(system["pos"]) != rollout or qps["pos"].shape != (rollout, bodies, 3):
+        raise AssertionError(f"rollout of {rollout} steps: page {len(system['pos'])} frames, npy "
+                             f"{qps['pos'].shape}")
+    scalars = io_metrics.read_scalars(out["events"])
+    eval_steps = sorted({step for tag_, step, _ in scalars if tag_ == "eval/episode_reward"})
+    if eval_steps != [0, LEARNER_STEPS * env_steps_per_training_step(p)]:
+        raise AssertionError(f"eval scalars at {eval_steps}")
+    if not all(np.isfinite(v) for tag_, _, v in scalars if tag_.startswith("eval/")):
+        raise AssertionError("a non-finite eval scalar")
+    reward = [v for tag_, step, v in scalars if tag_ == "eval/episode_reward"]
+    print(f"learner v1 ant {tag}: {LEARNER_STEPS} training steps, 2 evals and a rollout of "
+          f"{rollout} steps in {seconds:.1f} s; launches {launches} (as expected); the params "
+          f"file's policy acts as the trained one bit for bit; page of {len(system['pos'])} "
+          f"frames, npy {qps['pos'].shape}; {len(scalars)} scalars, eval rewards {reward}")
+    return {"seconds": seconds, "launches": launches, "rollout_steps": rollout,
+            "eval_steps": eval_steps, "eval_episode_reward": reward, "npy_shape": qps["pos"].shape,
+            "scalars": len(scalars)}
+
+
+def learner_v2(tag, logdir):
+    """The CLI on the v2 ant: exact gen_step and fused launches, the page."""
+    p = recipe()
+    zero_apg_counts()
+    t0 = time.perf_counter()
+    out = learner.main(cli_argv(p, LEARNER_V2_STEPS, 1, logdir, "--engine", "v2",
+                                "--num_videos", "1"))
+    launches = apg_counts()
+    seconds = time.perf_counter() - t0
+    rollout = out["rollout_steps"][0]
+    want = cli_launches(p, LEARNER_V2_STEPS, 1, rollout, "gen_step")
+    if launches != want:
+        raise AssertionError(f"learner v2 ant: launches {launches}, expected {want}")
+    system = viewer_system(out["videos"][0])
+    if len(system["pos"]) != rollout:
+        raise AssertionError(f"v2 page of {len(system['pos'])} frames, rollout {rollout}")
+    print(f"learner v2 ant {tag}: {LEARNER_V2_STEPS} training step, 1 eval and a rollout of "
+          f"{rollout} steps in {seconds:.1f} s; launches {launches} (as expected); page of "
+          f"{len(system['pos'])} frames")
+    return {"seconds": seconds, "launches": launches, "rollout_steps": rollout}
+
+
+def resumed(label, run, ckdir):
+    """Runs `run(progress_fn)` twice on one checkpoint_dir: the second run
+    must resume past the first, its restored state (taken right after the
+    restore) equal to the first run's last checkpoint bit for bit."""
+    steps, seconds, restored = [], [], []
+    checkpoint.last_restored = None
+    for _ in range(2):
+        steps.append([])
+        t0 = time.perf_counter()
+        run(lambda step, metrics, seen=steps[-1]: seen.append(int(step)))
+        seconds.append(time.perf_counter() - t0)
+        restored.append(checkpoint.last_restored)
+    first_last = os.path.join(ckdir, f"step_{steps[0][-1]:012d}")
+    saved = checkpoint.load(first_last)
+    parts = {k: checkpoint.equal(restored[1][k], saved[k]) for k in saved} if restored[1] else {}
+    if restored[0] is not None or not parts or not all(parts.values()) \
+            or not steps[1][0] > steps[0][-1]:
+        raise AssertionError(f"{label} resume: steps {steps}, restored parts equal {parts}")
+    print(f"checkpoint {label}: run 1 reported {steps[0]}, run 2 resumed from "
+          f"{os.path.basename(first_last)} and reported {steps[1]}; the restored state equals "
+          f"the saved one bit for bit ({parts}); {[round(s, 1) for s in seconds]} s")
+    return {"steps": steps, "equal": parts, "seconds": seconds,
+            "checkpoints": sorted(os.listdir(ckdir))}
+
+
+def learner_paths(tag, phase):
+    """The learner phase: the CLI on v1 ant at the ant recipe and on v2 ant,
+    then PPO's and SAC's checkpoint round trips."""
+    with tempfile.TemporaryDirectory() as root:
+        phase("learner: v1 ant through the CLI")
+        v1 = learner_v1(tag, os.path.join(root, "v1"))
+        phase("learner: v2 ant through the CLI")
+        v2 = learner_v2(tag, os.path.join(root, "v2"))
+        phase("learner: PPO checkpoint and resume")
+        p = dict(recipe(), num_timesteps=RESUME_STEPS * env_steps_per_training_step(recipe()),
+                 num_evals=1)
+        ppo_dir = os.path.join(root, "ppo_ckpt")
+        ppo_resume = resumed("PPO ant", lambda progress: ppo.train(
+            "ant", num_eval_envs=PPO_EVAL_ENVS, seed=0, device=DEVICE, checkpoint_dir=ppo_dir,
+            progress_fn=progress, **p), ppo_dir)
+        phase("learner: SAC checkpoint and resume")
+        sac_dir = os.path.join(root, "sac_ckpt")
+        logdir = os.path.join(root, "sac_params")
+        sac_resume = resumed("SAC humanoid", lambda progress: run_sac(
+            "humanoid", "humanoid", RESUME_STEPS, checkpoint_dir=sac_dir,
+            checkpoint_logdir=logdir, progress_fn=progress), sac_dir)
+        pickles = sorted(f for f in os.listdir(root) if f.startswith("sac_params_sac_"))
+        if len(pickles) != 2:
+            raise AssertionError(f"checkpoint_logdir pickles {pickles}")
+        io_model.load_params(os.path.join(root, pickles[-1]))
+        sac_resume["checkpoint_logdir_files"] = pickles
+    return {"v1": v1, "v2": v2, "ppo_resume": ppo_resume, "sac_resume": sac_resume}
+
+
+
 def wide_entry(co, tr, bg, name_limit):
     """The kernels line's record of the PBD kernel's wide route (PBD_WIDE):
     its launches on the wide scenes' main paths (the composer's and
@@ -3065,7 +3284,7 @@ def main():
 
     # -- timings ------------------------------------------------------------
     phase("pbd_step timings")
-    plain_ms = cuda_ms(lambda: kernels.pbd_step_plain(sys_, qp, act), reps=10, warmup=2)
+    plain_ms = cuda_ms(lambda: kernels.pbd_step_plain(sys_, qp, act), reps=1, warmup=1)
     bound_ms, bound_by, ops, n_bytes, bytes_ms, ops_ms = pbd_bound(sys_, qp, act)
     # the twin's operations and the bytes scale with the envs: the bound per env
     pbd_by_envs = pbd_timings(tag, sys_, qp, act, bound_ms / N_ENVS)
@@ -3209,6 +3428,8 @@ def main():
                                     for k, r in apg_run[label].items()},
                                  **{f"SAC {label}": r["launches"][f"fused_mlp_{kind}"]
                                     for label, r in sac_run["runs"].items()},
+                                 "learner CLI v1 ant": lr["v1"]["launches"][f"fused_mlp_{kind}"],
+                                 "learner CLI v2 ant": lr["v2"]["launches"][f"fused_mlp_{kind}"],
                                  "probe": probe_launches.get(f"fused_mlp_{kind}", 0)},
             "launches_per_training_step": per_step_launches[kind],
             "max_abs_err": max([c[kind]["max_abs_err"] for k, c in checks.items()
@@ -3326,7 +3547,7 @@ def main():
     soa = lambda x: x.reshape(N_ENVS, -1).t().contiguous()
     gen_soa = tuple(soa(x) for x in gen_ins)
     gen_ms = cuda_ms(lambda: gen_kernels.gen_step_soa(gen_sys, *gen_soa, GEN_FRAMES), 100, 10)
-    gen_plain_ms = cuda_ms(lambda: gen_kernels.gen_step_plain(gen_sys, *gen_ins, GEN_FRAMES), 3, 1)
+    gen_plain_ms = cuda_ms(lambda: gen_kernels.gen_step_plain(gen_sys, *gen_ins, GEN_FRAMES), 1, 1)
     gen_bound_ms, gen_bound_by, gen_ops, gen_bytes = gen_bound(gen_sys, gen_ins, GEN_FRAMES)
     ref_ms = GEN_REFERENCE_FLOPS * N_ENVS / FP32_OPS_PER_S * 1e3
     print(f"timing {tag}: gen_step kernel {gen_ms:.4f} ms/launch ({GEN_FRAMES} frames, "
@@ -3417,6 +3638,9 @@ def main():
 
     # -- SAC: the fused kernels' Q route, then sac.train on humanoid, halfcheetah, v2 ant --------
     sac_run = sac_paths(tag, phase)
+    t_learner = time.perf_counter()
+    lr = learner_paths(tag, phase)
+    lr["seconds"] = time.perf_counter() - t_learner
 
     # -- the launch-overhead probe ------------------------------------------------------
     phase("probe parity")
@@ -3551,6 +3775,7 @@ def main():
         "runs": sac_run["runs"],
         "fused_checks": {f"{c}@{r}": v for (c, r), v in sac_run["chains"]["checks"].items()},
         "card": name_limit}}))
+    print(json.dumps({"learner": {**lr, "card": name_limit}}, default=str))
     print(json.dumps({"biggym_es_ars": {
         "biggym_main_paths": bg["main"],
         "biggym_systems": {", ".join(names): src.name for src, names in bg_sources.items()},
@@ -3637,7 +3862,8 @@ def main():
                                 for kind, r in apg_run["v1 ant"].items()},
                              **{f"SAC {label}": r["launches"]["physics"]
                                 for label, r in sac_run["runs"].items()
-                                if not label.startswith("v2")}},
+                                if not label.startswith("v2")},
+                             "learner CLI v1 ant": lr["v1"]["launches"]["pbd_step"]},
         "by_scene": {
             "ant": {"ms": kernel_ms, "ms_host_issued": pbd_by_envs[N_ENVS]["host"],
                     "ms_by_envs": pbd_by_envs, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -3754,6 +3980,7 @@ def main():
                                  **{f"APG v2 ant {kind}": r["launches"]["gen_step"]
                                     for kind, r in apg_run["v2 ant"].items()},
                                  "SAC v2 ant": sac_run["runs"]["v2 ant"]["launches"]["physics"],
+                                 "learner CLI v2 ant": lr["v2"]["launches"]["gen_step"],
                                  **{f"v2 {name} env.step": r["launches"]
                                     for name, r in v2_records.items()}},
             "by_env": {name: {

@@ -1849,3 +1849,46 @@ def test_es_and_ars_launch_exactly(cuda):
     assert got == (0, 0, 30)
     assert math.isfinite(metrics["training/eval_scores_mean"])
     assert bool((params[1] != 0).any()) and bool(torch.isfinite(params[1]).all())
+
+
+def test_model_file_round_trip_from_the_card(cuda, tmp_path):
+    """io.model saves tensors of the card as CPU tensors: the file loads
+    where there is no card, with the same values."""
+    from brax_torch.io import model
+    from brax_torch.training import running_statistics
+
+    norm = running_statistics.init_state((5,), device=cuda)
+    params = (norm, {"hidden_0.kernel": torch.randn((5, 3), device=cuda, requires_grad=True)})
+    path = str(tmp_path / "params.pkl")
+    model.save_params(path, params)
+    loaded = model.load_params(path)
+    kernel = loaded[1]["hidden_0.kernel"]
+    assert kernel.device.type == "cpu" and loaded[0].mean.device.type == "cpu"
+    assert torch.equal(kernel, params[1]["hidden_0.kernel"].detach().cpu())
+    back = model.to_device(loaded, cuda)
+    assert back[0].std.device.type == "cuda" and torch.equal(back[0].std, norm.std)
+
+
+def test_learner_cli_ppo_on_v1_ant(cuda, tmp_path):
+    """`python -m brax_torch.training.learner` at 64 envs on the card: one
+    training step of 2 unrolls of 5 steps, 4 minibatches, and 2 evals of
+    128 envs x 10 steps, a rollout of up to 10 steps at batch 1; exact PBD
+    and fused launches; the params file, page, npy and event file."""
+    from brax_torch.io import metrics, model, npy_file
+    from brax_torch.training import learner
+
+    argv = ["--env", "ant", "--learner", "ppo", "--num_envs", "64", "--batch_size", "32",
+            "--num_minibatches", "4", "--unroll_length", "5", "--num_updates_per_batch", "1",
+            "--total_env_steps", "640", "--num_evals", "2", "--episode_length", "10",
+            "--num_trajectories_npy", "1", "--logdir", str(tmp_path)]
+    (out, got) = _counted(lambda: learner.main(argv))
+    rollout = out["rollout_steps"][0]
+    # (fwd, bwd, pbd): 10 rollout steps + 3 x 4 minibatch forwards, 2 x 4
+    # backwards, 2 evals of 10 steps, the rollout's steps
+    assert got == (10 + 12 + 20 + rollout, 8, 10 + 20 + rollout)
+    normalizer, policy = model.load_params(out["params"])
+    assert policy["hidden_0.kernel"].device.type == "cpu" and float(normalizer.count) == 640
+    assert npy_file.load(out["trajectories"][0])["pos"].shape == (rollout, 10, 3)
+    assert "const system" in open(out["videos"][0]).read()
+    evals = {s for tag, s, _ in metrics.read_scalars(out["events"]) if tag.startswith("eval/")}
+    assert evals == {0, 640}

@@ -95,7 +95,6 @@ def test_sac_metrics_counts_and_fused_flag():
 
 
 def test_sac_refuses_what_it_cannot_do():
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        _train_fast(0, num_timesteps=128, checkpoint_dir="build/none")
+    # the checkpoint arguments are taken now (tests/test_torch_checkpoint.py)
     with pytest.raises(ValueError, match="no training would happen"):
         _train_fast(0, num_timesteps=128, min_replay_size=128)
